@@ -1,4 +1,4 @@
-"""GPU smoke run of the PyTorch/CUDA port at the DTU eval setting.
+"""GPU smoke run of the PyTorch/CUDA port: DTU inference and DTU training.
 
     python3 chip_smoke.py
 
@@ -8,18 +8,29 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this repository's
 1. Device: the card's name and power limit (nvidia-smi).
 2. Build: compile every kernel under ``transmvsnet_tpu_torch/csrc``.
 3. Kernel checks: each kernel against its plain PyTorch version on the
-   card, on the same bfloat16 inputs, at every shape the main path gives
-   it; kernel and plain times by CUDA events.
-4. Main path: the cascade at 1152x864, 5 views, batch 1, 48/32/8
+   card, on the same bfloat16 inputs, at every shape its path gives it;
+   kernel and plain times by CUDA events.
+4. Inference path: the cascade at 1152x864, 5 views, batch 1, 48/32/8
    hypotheses, bfloat16, random weights from a seeded generator; a few
    requests with the launch counts read around them; the same model and
    inputs with the plain ops for agreement; depth-maps/s, peak memory and
    one forward's time by part of the model.
-5. Last line: ``{"ok": true, "device": {...}}``.
+5. Training path: ``train/step.py`` at the DTU recipe (512x640, 5 views,
+   batch 2, 48/32/8, bfloat16, Adam) from seeded random weights; a
+   warm-up step and a few timed steps, in the train CLI's arithmetic
+   (cuDNN's default TF32), with the launch counts read around them; ms
+   per step split into forward, backward and optimizer, depth maps
+   trained per second, peak memory; then one step's gradients
+   against the same step on the plain ops and with the plain backward
+   (see GRAD_COSINE_MIN), beside two witnesses of bf16 noise and two
+   planted kernel faults the gate must catch.
+6. Last line: ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import subprocess
 import sys
@@ -33,6 +44,28 @@ H, W, V, B = 864, 1152, 5, 1
 NDEPTHS = (48, 32, 8)
 NUM_HYP = 192
 REQUESTS = 3
+TRAIN_H, TRAIN_W, TRAIN_B = 512, 640, 2  # the DTU recipe (reference scripts/train.sh)
+TRAIN_STEPS = 3
+# One step's parameter gradients held against two plain references:
+# - the plain ops (plain forward and autograd): all-parameter cosine gated
+#   at GRAD_COSINE_MIN. The two bf16 forwards differ by up to a bf16 step,
+#   which moves stage-2/3 hypotheses through the argmax; per group this
+#   reaches the noise floor (the plain step with its DCN outputs nudged by
+#   one bf16 step agrees with it no better), so groups are printed only.
+# - the same K1/K2 forward with K3/K4's plain versions in the backward:
+#   identical activations, so each group's cosine is gated at
+#   BWD_COSINE_MIN, and a fault planted in K3 or K4 must fall below it.
+# Groups: FeatureNet (whose gradient passes through K3, and through K4 for
+# the source views), its DCN offset convs alone, and the rest (FMT,
+# PixelwiseNet, CostRegNet), so a fault upstream of the warp cannot hide
+# behind CostRegNet's larger gradients.
+GRAD_GROUPS = {
+    "feature_net": lambda n: n.startswith("feature."),
+    "offset_convs": lambda n: "conv_offset_mask" in n,
+    "rest": lambda n: not n.startswith("feature."),
+}
+GRAD_COSINE_MIN = 0.99
+BWD_COSINE_MIN = 0.999
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -73,51 +106,90 @@ def check_close(got: torch.Tensor, want: torch.Tensor, rtol: float, atol_scale: 
     }
 
 
+def head_shapes(h: int, w: int) -> list[tuple[int, int, int, int]]:
+    """(h, w, C_out, launches per pass) of the ARF heads' nine DCN layers
+    for input images of h x w."""
+    return [
+        (h // 4, w // 4, 32, 3),
+        (h // 2, w // 2, 32, 2),
+        (h // 2, w // 2, 16, 1),
+        (h, w, 32, 2),
+        (h, w, 8, 1),
+    ]
+
+
+# (batch, height, width) of each path that runs the forward kernels.
+PATHS = {"inference": (B, H, W), "train": (TRAIN_B, TRAIN_H, TRAIN_W)}
+
+
 def dcn_checks(dev, gen) -> dict:
     from transmvsnet_tpu_torch.ops.cuda.dcn_fused import dcn_fused, dcn_fused_plain
 
-    # (h, w, C_out, launches per forward): the ARF heads' DCN layers.
-    shapes = [
-        (H // 4, W // 4, 32, 3),
-        (H // 2, W // 2, 32, 2),
-        (H // 2, W // 2, 16, 1),
-        (H, W, 32, 2),
-        (H, W, 8, 1),
-    ]
-    C, N = 32, B * V
+    C = 32
     rows = []
-    for h, w, c_out, per_fwd in shapes:
-        def rnd(*shape, s=1.0):
-            return (torch.randn(*shape, generator=gen) * s).to(dev)
+    for path, (b, ph, pw) in PATHS.items():
+        for h, w, c_out, per_pass in head_shapes(ph, pw):
+            N = b * V
 
-        x = rnd(N, C, h, w).to(torch.bfloat16)
-        # Offset-conv weights put offsets at a few pixels: non-integer, and
-        # some taps off the image at every border.
-        k_off = rnd(27, C, 3, 3, s=0.12)
-        b_off = rnd(27, s=0.5)
-        weight = rnd(9, C, c_out, s=0.1)
-        bias = rnd(c_out, s=0.1)
-        got = dcn_fused(x, k_off, b_off, weight, bias)
-        want = dcn_fused_plain(x, k_off, b_off, weight, bias)
-        torch.cuda.synchronize()
-        # Both round one float32 result to bfloat16: at most one bf16 step
-        # (2^-7 relative) apart, plus float32 summation-order noise.
-        res = check_close(got, want, rtol=2.0**-7, atol_scale=1e-3)
-        if res["n_outside"]:
-            raise AssertionError(f"dcn_fused disagrees at {(N, C, h, w, c_out)}: {res}")
-        ms = cuda_ms(lambda: dcn_fused(x, k_off, b_off, weight, bias), iters=10)
-        plain_ms = cuda_ms(lambda: dcn_fused_plain(x, k_off, b_off, weight, bias), iters=2, warmup=1)
-        pix = N * h * w
-        nbytes = 2 * pix * C + 2 * pix * c_out + 4 * (27 * C * 9 + 27 + 9 * C * c_out + c_out)
-        flops = 2 * pix * 9 * C * (27 + c_out + 4)
-        bd = bound(nbytes, flops)
-        rows.append(dict(shape=[N, C, h, w, c_out], per_forward=per_fwd, ms=ms,
-                         plain_ms=plain_ms, **bd, **res))
-        print(f"dcn_fused {[N, C, h, w, c_out]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
-              f"bound_ms {bd['bound_ms']:.4f} ({bd['bound_by']}) "
-              f"max_abs_err {res['max_abs_err']:.3g}", flush=True)
+            def rnd(*shape, s=1.0):
+                return (torch.randn(*shape, generator=gen) * s).to(dev)
+
+            x = rnd(N, C, h, w).to(torch.bfloat16)
+            # Offset-conv weights put offsets at a few pixels: non-integer,
+            # and some taps off the image at every border.
+            k_off = rnd(27, C, 3, 3, s=0.12)
+            b_off = rnd(27, s=0.5)
+            weight = rnd(9, C, c_out, s=0.1)
+            bias = rnd(c_out, s=0.1)
+            args = (x, k_off, b_off, weight, bias)
+            got = dcn_fused(*args)
+            want = dcn_fused_plain(*args)
+            torch.cuda.synchronize()
+            # Both round one float32 result to bfloat16: at most one bf16
+            # step (2^-7 relative) apart, plus float32 summation-order noise.
+            res = check_close(got, want, rtol=2.0**-7, atol_scale=1e-3)
+            if res["n_outside"]:
+                raise AssertionError(f"dcn_fused disagrees at {(N, C, h, w, c_out)}: {res}")
+            del got, want
+            ms = cuda_ms(lambda: dcn_fused(*args), iters=10)
+            plain_ms = cuda_ms(lambda: dcn_fused_plain(*args), iters=2, warmup=1)
+            pix = N * h * w
+            nbytes = 2 * pix * C + 2 * pix * c_out + 4 * (27 * C * 9 + 27 + 9 * C * c_out + c_out)
+            flops = 2 * pix * 9 * C * (27 + c_out + 4)
+            bd = bound(nbytes, flops)
+            rows.append(dict(path=path, shape=[N, C, h, w, c_out], per_pass=per_pass, ms=ms,
+                             plain_ms=plain_ms, **bd, **res))
+            print(f"dcn_fused {path} {[N, C, h, w, c_out]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                  f"bound_ms {bd['bound_ms']:.4f} ({bd['bound_by']}) "
+                  f"max_abs_err {res['max_abs_err']:.3g}", flush=True)
+            del x, args
+            torch.cuda.empty_cache()
     return summarise("dcn_fused", "transmvsnet_tpu_torch/csrc/dcn_fused.cu",
-                     "transmvsnet_tpu/ops/pallas/dcn_onehot.py:610", rows)
+                     "transmvsnet_tpu/ops/pallas/dcn_onehot.py:610", rows, "inference")
+
+
+# (stage, C, D) of the three plane sweeps.
+SWEEPS = [("stage1", 32, NDEPTHS[0]), ("stage2", 16, NDEPTHS[1]), ("stage3", 8, NDEPTHS[2])]
+
+
+def sweep_inputs(gen, dev, b, ph, pw, stage_index, stage, C, D):
+    """Features, hypotheses and fused projections of one plane sweep for
+    b batches of V views at ph x pw: random features, hypotheses across
+    the DTU range with a band behind the cameras (source z < 1e-6)."""
+    from transmvsnet_tpu_torch.data.example import DEPTH_MAX, DEPTH_MIN, example_inputs
+    from transmvsnet_tpu_torch.ops.geometry import fuse_projection
+
+    _, projs, _ = example_inputs(B=b, V=V, H=ph, W=pw)
+    scale = 2 ** (2 - stage_index)
+    h, w = ph // scale, pw // scale
+    src = torch.randn(b, V - 1, C, h, w, generator=gen).to(dev, torch.bfloat16)
+    ref = torch.randn(b, C, h, w, generator=gen).to(dev, torch.bfloat16)
+    base = torch.linspace(DEPTH_MIN, DEPTH_MAX, D)[None, :, None, None]
+    depth = base + 5.0 * torch.rand(b, D, h, w, generator=gen)
+    depth[:, :, : h // 16] *= -1.0
+    depth = depth.to(dev).contiguous()
+    fused = fuse_projection(torch.from_numpy(projs[stage]).to(dev))
+    return src, ref, fused[:, 1:].contiguous(), fused[:, 0].contiguous(), depth
 
 
 def warp_checks(dev, gen) -> dict:
@@ -125,63 +197,187 @@ def warp_checks(dev, gen) -> dict:
         warp_correlate,
         warp_correlate_plain,
     )
-    from transmvsnet_tpu_torch.data.example import DEPTH_MAX, DEPTH_MIN, example_inputs
-    from transmvsnet_tpu_torch.ops.geometry import fuse_projection
 
-    _, projs, _ = example_inputs(B=B, V=V, H=H, W=W)
     S = V - 1
     rows = []
-    for i, (stage, C, D) in enumerate([("stage1", 32, 48), ("stage2", 16, 32), ("stage3", 8, 8)]):
-        scale = 2 ** (2 - i)
-        h, w = H // scale, W // scale
-        src = torch.randn(B, S, C, h, w, generator=gen).to(dev, torch.bfloat16)
-        ref = torch.randn(B, C, h, w, generator=gen).to(dev, torch.bfloat16)
-        base = torch.linspace(DEPTH_MIN, DEPTH_MAX, D)[None, :, None, None]
-        depth = base + 5.0 * torch.rand(B, D, h, w, generator=gen)
-        # A band behind the cameras: source z < 1e-6, sampled as zero.
-        depth[:, :, : h // 16] *= -1.0
-        depth = depth.to(dev).contiguous()
-        fused = fuse_projection(torch.from_numpy(projs[stage]).to(dev))
-        sp, rp = fused[:, 1:].contiguous(), fused[:, 0].contiguous()
-        got = warp_correlate(src, ref, sp, rp, depth)
-        want = warp_correlate_plain(src, ref, sp, rp, depth)
-        torch.cuda.synchronize()
-        # Same float32 arithmetic up to summation order and fused
-        # multiply-adds in the projection (~1e-5 px of sample position).
-        res = check_close(got, want, rtol=1e-3, atol_scale=1e-3)
-        if res["n_outside"]:
-            raise AssertionError(f"warp_correlate disagrees at {stage}: {res}")
-        ms = cuda_ms(lambda: warp_correlate(src, ref, sp, rp, depth), iters=50, warmup=5)
-        plain_ms = cuda_ms(lambda: warp_correlate_plain(src, ref, sp, rp, depth), iters=2, warmup=1)
-        n_out = B * S * D * h * w
-        valid = (want != 0).float().mean().item()
-        nbytes = 2 * (B * S + B) * C * h * w + 4 * B * D * h * w + 4 * n_out + 4 * B * S * 12
-        # Projection (~12) per output; bilinear sample and product (~10 C)
-        # only where the sample is valid, as this run's data needs.
-        flops = n_out * (12 + valid * 10 * C)
-        bd = bound(nbytes, flops)
-        rows.append(dict(shape=[B * S, C, D, h, w], per_forward=1, ms=ms, plain_ms=plain_ms,
-                         nonzero_share=valid, **bd, **res))
-        print(f"warp_correlate {[B * S, C, D, h, w]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
-              f"bound_ms {bd['bound_ms']:.4f} ({bd['bound_by']}) "
-              f"max_abs_err {res['max_abs_err']:.3g} nonzero {valid:.3f}", flush=True)
+    for path, (b, ph, pw) in PATHS.items():
+        for i, (stage, C, D) in enumerate(SWEEPS):
+            args = sweep_inputs(gen, dev, b, ph, pw, i, stage, C, D)
+            h, w = args[0].shape[-2:]
+            got = warp_correlate(*args)
+            want = warp_correlate_plain(*args)
+            torch.cuda.synchronize()
+            # Same float32 arithmetic up to summation order and fused
+            # multiply-adds in the projection (~1e-5 px of sample position).
+            res = check_close(got, want, rtol=1e-3, atol_scale=1e-3)
+            if res["n_outside"]:
+                raise AssertionError(f"warp_correlate disagrees at {path} {stage}: {res}")
+            valid = (want != 0).float().mean().item()
+            del got, want
+            ms = cuda_ms(lambda: warp_correlate(*args), iters=50, warmup=5)
+            plain_ms = cuda_ms(lambda: warp_correlate_plain(*args), iters=2, warmup=1)
+            n_out = b * S * D * h * w
+            nbytes = 2 * (b * S + b) * C * h * w + 4 * b * D * h * w + 4 * n_out + 4 * b * S * 12
+            # Projection (~12) per output; bilinear sample and product
+            # (~10 C) only where the sample is valid, as this run's data
+            # needs.
+            flops = n_out * (12 + valid * 10 * C)
+            bd = bound(nbytes, flops)
+            rows.append(dict(path=path, shape=[b * S, C, D, h, w], per_pass=1, ms=ms,
+                             plain_ms=plain_ms, nonzero_share=valid, **bd, **res))
+            print(f"warp_correlate {path} {[b * S, C, D, h, w]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                  f"bound_ms {bd['bound_ms']:.4f} ({bd['bound_by']}) "
+                  f"max_abs_err {res['max_abs_err']:.3g} nonzero {valid:.3f}", flush=True)
+            del args
+            torch.cuda.empty_cache()
     return summarise("warp_correlate", "transmvsnet_tpu_torch/csrc/warp_correlate.cu",
-                     "transmvsnet_tpu/ops/pallas/warp_onehot.py:291", rows)
+                     "transmvsnet_tpu/ops/pallas/warp_onehot.py:291", rows, "inference")
 
 
-def summarise(name, source, replaces, rows) -> dict:
-    """One kernel's entry: times and bound per forward of the main path
-    (each shape's figure times its launches per forward), worst error."""
-    def per_fwd(key):
-        return sum(r[key] * r["per_forward"] for r in rows)
+def check_all(got, want, rtol, atol_scale, what) -> dict:
+    """``check_close`` over a tuple of outputs; raises if any is outside."""
+    results = [check_close(g, w, rtol, atol_scale) for g, w in zip(got, want)]
+    bad = {i: r for i, r in enumerate(results) if r["n_outside"]}
+    if bad:
+        raise AssertionError(f"{what} disagrees with its plain version: {bad}")
+    return {"max_abs_err": max(r["max_abs_err"] for r in results),
+            "scale": max(r["scale"] for r in results), "tolerance": results[0]["tolerance"]}
 
+
+def dcn_bwd_checks(dev, gen) -> dict:
+    from transmvsnet_tpu_torch.ops.cuda.dcn_bwd import dcn_bwd, dcn_bwd_plain
+
+    # The ARF heads' DCN layers at the training resolution, batch 2 x 5 views.
+    C, N = 32, TRAIN_B * V
+    rows = []
+    for h, w, c_out, per_step in head_shapes(TRAIN_H, TRAIN_W):
+        def rnd(*shape, s=1.0):
+            return (torch.randn(*shape, generator=gen) * s).to(dev)
+
+        x = rnd(N, C, h, w).to(torch.bfloat16)
+        mask = torch.rand(N, 9, h, w, generator=gen).to(dev)
+        weight = rnd(9, C, c_out, s=0.1)
+        g = rnd(N, c_out, h, w)
+        res = None
+        # Zero offsets (the reference's initial state: every tap on an
+        # integer) and offsets of a few pixels, some off the image.
+        for off_scale in (0.0, 2.0):
+            dy, dx = rnd(N, 9, h, w, s=off_scale), rnd(N, 9, h, w, s=off_scale)
+            args = (x, dy, dx, mask, weight, g)
+            got = dcn_bwd(*args)
+            want = dcn_bwd_plain(*args)
+            torch.cuda.synchronize()
+            # Same float32 arithmetic on the same sample positions; sums
+            # (and the atomics into dx and dw) in another order.
+            res = check_all(got, want, 1e-3, 1e-4, f"dcn_bwd {(N, C, h, w, c_out)} offsets {off_scale}")
+            if off_scale == 0.0 and not (got[1].abs().max() > 0 and got[2].abs().max() > 0):
+                raise AssertionError("dcn_bwd: zero offsets got no offset gradient (two-tap rule)")
+            del got, want
+        ms = cuda_ms(lambda: dcn_bwd(*args), iters=5, warmup=1)
+        plain_ms = cuda_ms(lambda: dcn_bwd_plain(*args), iters=1, warmup=1)
+        pix = N * h * w
+        nbytes = (2 * pix * C + 4 * pix * (3 * 9 + c_out) + 4 * 9 * C * c_out  # x, dy/dx/mask, g, w
+                  + 4 * pix * (C + 3 * 9) + 4 * 9 * C * c_out)                  # dx, ddy/ddx/dm, dw
+        # q = W^T g and dw: 2 * 9 C C_out multiply-adds per pixel; sampling,
+        # offset and mask gradients and the scatter: ~20 operations per
+        # (tap, channel).
+        flops = pix * 9 * C * (4 * c_out + 20)
+        bd = bound(nbytes, flops)
+        rows.append(dict(path="train", shape=[N, C, h, w, c_out], per_pass=per_step, ms=ms,
+                         plain_ms=plain_ms, **bd, **res))
+        print(f"dcn_bwd {[N, C, h, w, c_out]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"bound_ms {bd['bound_ms']:.4f} ({bd['bound_by']}) "
+              f"max_abs_err {res['max_abs_err']:.3g} at scale {res['scale']:.3g}", flush=True)
+        del x, mask, weight, g, args
+        torch.cuda.empty_cache()
+    return summarise("dcn_bwd", "transmvsnet_tpu_torch/csrc/dcn_bwd.cu",
+                     "transmvsnet_tpu/ops/pallas/dcn_bwd.py:410", rows, "train")
+
+
+def warp_bwd_checks(dev, gen) -> dict:
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import (
+        warp_correlate_bwd,
+        warp_correlate_bwd_plain,
+    )
+
+    Bt, S = TRAIN_B, V - 1
+    rows = []
+    for i, (stage, C, D) in enumerate(SWEEPS):
+        fwd_args = sweep_inputs(gen, dev, Bt, TRAIN_H, TRAIN_W, i, stage, C, D)
+        h, w = fwd_args[0].shape[-2:]
+        g = torch.randn(Bt, S, D, h, w, generator=gen).to(dev)
+        args = (*fwd_args, g)
+        got = warp_correlate_bwd(*args)
+        want = warp_correlate_bwd_plain(*args)
+        torch.cuda.synchronize()
+        # As K2: float32 arithmetic up to summation order (atomics) and
+        # fused multiply-adds in the projection (~1e-5 px of position).
+        res = check_all(got, want, 1e-3, 1e-3, f"warp_correlate_bwd at {stage}")
+        del got, want
+        ms = cuda_ms(lambda: warp_correlate_bwd(*args), iters=10, warmup=2)
+        plain_ms = cuda_ms(lambda: warp_correlate_bwd_plain(*args), iters=1, warmup=1)
+        with torch.no_grad():
+            valid = (warp_correlate(*fwd_args) != 0).float().mean().item()
+        n_out = Bt * S * D * h * w
+        nbytes = (2 * (Bt * S + Bt) * C * h * w + 4 * Bt * D * h * w + 4 * n_out  # src, ref, depth, g
+                  + 4 * (Bt * S + Bt) * C * h * w + 4 * Bt * S * 12)              # dsrc, dref, rel
+        # Projection (~12) per (view, hypothesis, pixel); where the sample
+        # is valid (as this run's data needs), per channel the bilinear
+        # sample (~8), the dref product (2) and the scatter (~8).
+        flops = n_out * (12 + valid * 18 * C)
+        bd = bound(nbytes, flops)
+        rows.append(dict(path="train", shape=[Bt * S, C, D, h, w], per_pass=1, ms=ms,
+                         plain_ms=plain_ms, nonzero_share=valid, **bd, **res))
+        print(f"warp_correlate_bwd {[Bt * S, C, D, h, w]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"bound_ms {bd['bound_ms']:.4f} ({bd['bound_by']}) "
+              f"max_abs_err {res['max_abs_err']:.3g} at scale {res['scale']:.3g} nonzero {valid:.3f}",
+              flush=True)
+        del fwd_args, g, args
+        torch.cuda.empty_cache()
+    return summarise("warp_correlate_bwd", "transmvsnet_tpu_torch/csrc/warp_correlate_bwd.cu",
+                     "transmvsnet_tpu/ops/pallas/warp_bwd.py:504", rows, "train")
+
+
+def summarise(name, source, replaces, rows, main) -> dict:
+    """One kernel's entry: times and bound per pass of each path that runs
+    it (a forward for inference, a step for training: each shape's figure
+    times its launches per pass), headed by the ``main`` path's; worst
+    error over all shapes."""
+    def per_pass(path, key):
+        return sum(r[key] * r["per_pass"] for r in rows if r["path"] == path)
+
+    by_path = {
+        path: {key: per_pass(path, key) for key in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")}
+        for path in dict.fromkeys(r["path"] for r in rows)
+    }
+    head = by_path[main]
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": None, "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": per_fwd("ms"), "plain_ms": per_fwd("plain_ms"), "bound_ms": per_fwd("bound_ms"),
-        "bound_by": "bytes" if per_fwd("bytes_ms") >= per_fwd("ops_ms") else "operations",
-        "library_ms": None, "shapes": rows,
+        "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": "bytes" if head["bytes_ms"] >= head["ops_ms"] else "operations",
+        "library_ms": None, "main_path": main, "by_path": by_path, "shapes": rows,
     }
+
+
+def kernel_wrappers() -> dict:
+    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+    from transmvsnet_tpu_torch.ops.cuda.dcn_bwd import dcn_bwd
+    from transmvsnet_tpu_torch.ops.cuda.dcn_fused import dcn_fused
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import warp_correlate_bwd
+
+    return {f.__name__: f for f in (dcn_fused, warp_correlate, dcn_bwd, warp_correlate_bwd)}
+
+
+def reset_launches() -> None:
+    for f in kernel_wrappers().values():
+        f.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: f.launches for name, f in kernel_wrappers().items()}
 
 
 def module_breakdown(model, forward) -> dict:
@@ -232,8 +428,6 @@ def main_path(dev) -> dict:
     from transmvsnet_tpu_torch.data.example import DEPTH_MAX, DEPTH_MIN, example_inputs
     from transmvsnet_tpu_torch.models.feature_net import DCN
     from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
-    from transmvsnet_tpu_torch.ops.cuda.dcn_fused import dcn_fused
-    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate
 
     gen = torch.Generator().manual_seed(0)
     cfg = ModelConfig(ndepths=NDEPTHS, compute_dtype="bfloat16")
@@ -259,19 +453,19 @@ def main_path(dev) -> dict:
     forward()  # warm-up: cuDNN plans and the allocator
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    dcn_fused.launches = 0
-    warp_correlate.launches = 0
+    reset_launches()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(REQUESTS):
         out = forward()
     end.record()
     torch.cuda.synchronize()
-    launches = {"dcn_fused": dcn_fused.launches, "warp_correlate": warp_correlate.launches}
+    launches = read_launches()
     ms_per_map = start.elapsed_time(end) / REQUESTS
     peak = torch.cuda.max_memory_allocated()
-    print(f"main path: {REQUESTS} requests, launches {launches}", flush=True)
-    if launches != {"dcn_fused": 9 * REQUESTS, "warp_correlate": 3 * REQUESTS}:
+    print(f"inference path: {REQUESTS} requests, launches {launches}", flush=True)
+    want = {"dcn_fused": 9 * REQUESTS, "warp_correlate": 3 * REQUESTS, "dcn_bwd": 0, "warp_correlate_bwd": 0}
+    if launches != want:
         raise AssertionError(f"expected 9 dcn_fused and 3 warp_correlate launches per forward: {launches}")
 
     for s in ("stage1", "stage2", "stage3"):
@@ -310,7 +504,204 @@ def main_path(dev) -> dict:
         "stage3_depth_within_one_interval_of_plain": agree,
         "max_abs_dprob_vs_plain": dprob,
     }
-    print("main path: " + json.dumps(result), flush=True)
+    print("inference path: " + json.dumps(result), flush=True)
+    return result
+
+
+def train_path(dev) -> dict:
+    from transmvsnet_tpu_torch.config import ModelConfig
+    from transmvsnet_tpu_torch.data.example import example_train_batch
+    from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
+    from transmvsnet_tpu_torch.train.loop import to_device_batch
+    from transmvsnet_tpu_torch.train.schedule import make_optimizer, warmup_multistep
+    from transmvsnet_tpu_torch.train.step import TrainState, make_train_step
+
+    cfg = ModelConfig(ndepths=NDEPTHS, compute_dtype="bfloat16")
+    # The reference's initialisation (offset convs at zero), seeded.
+    model = TransMVSNet(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    # DTU-recipe inputs: example cameras, a smooth depth target inside the
+    # hypothesis range, all-ones masks.
+    batch = to_device_batch(example_train_batch(B=TRAIN_B, V=V, H=TRAIN_H, W=TRAIN_W, num_hyp=NUM_HYP), dev)
+    state = TrainState(model, *make_optimizer(model.parameters(), warmup_multistep(1e-3, [10**6], 0.5)))
+    train_step = make_train_step()
+    losses = []
+
+    def run(mark=None):
+        _, scalars = train_step(state, batch, mark)
+        losses.append(scalars["loss"].item())
+        if scalars["skipped_nan"].item():
+            raise AssertionError(f"train step skipped a non-finite loss: {losses}")
+
+    marks: dict[str, list] = {k: [] for k in ("start", "forward", "backward", "optimizer")}
+
+    def mark(phase):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        marks[phase].append(e)
+
+    # Timed in the arithmetic tools/train.py runs: PyTorch's default, in
+    # which cuDNN may use TF32 (the DCN backward's offset recompute turns
+    # it off for itself). The rest of this script runs in full float32.
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        run()  # warm-up: cuDNN plans, the allocator, offsets off the integers
+        torch.cuda.synchronize()
+        before = [p.detach().clone() for p in model.parameters()]
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        for _ in range(TRAIN_STEPS):
+            mark("start")
+            run(mark)
+        torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    print(f"train path: {TRAIN_STEPS} steps, launches {launches}", flush=True)
+    if per_step != {"dcn_fused": 9, "warp_correlate": 3, "dcn_bwd": 9, "warp_correlate_bwd": 3}:
+        raise AssertionError(f"expected 9 K1, 3 K2, 9 K3 and 3 K4 launches per step: {launches}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite loss: {losses}")
+    changed = sum(int(not torch.equal(a, p.detach())) for a, p in zip(before, model.parameters()))
+    if changed != len(before):
+        raise AssertionError(f"only {changed} of {len(before)} parameter tensors changed")
+    split = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    for i in range(TRAIN_STEPS):
+        prev = marks["start"][i]
+        for phase in split:
+            split[phase] += prev.elapsed_time(marks[phase][i]) / TRAIN_STEPS
+            prev = marks[phase][i]
+    ms_per_step = sum(split.values())
+
+    result = {
+        "ms_per_step": ms_per_step,
+        "ms_by_phase": split,
+        "depth_maps_trained_per_s": 1e3 * TRAIN_B / ms_per_step,
+        "peak_memory_bytes": peak,
+        "launches": launches,
+        "launches_per_step": per_step,
+        "losses": losses,
+    }
+    print("train path: " + json.dumps(result), flush=True)
+    result["gradients"] = grad_comparison(model, state, run)
+    return result
+
+
+def group_cosines(a: dict, b: dict) -> dict:
+    """Cosine of two gradient sets over all parameters and over each group."""
+    out = {}
+    for group, member in {"all": lambda n: True, **GRAD_GROUPS}.items():
+        names = [n for n in a if member(n)]
+        dot = sum((a[n] * b[n]).sum().item() for n in names)
+        na = sum(a[n].square().sum().item() for n in names) ** 0.5
+        nb = sum(b[n].square().sum().item() for n in names) ** 0.5
+        out[group] = dot / (na * nb) if na * nb > 0 else 0.0
+    return out
+
+
+def tensor_errors(a: dict, b: dict) -> dict:
+    """Median and worst relative error of a against b over the tensors."""
+    rel = {n: ((a[n] - b[n]).norm() / b[n].norm().clamp_min(1e-30)).item() for n in a}
+    worst = max(rel, key=rel.get)
+    return {"median_rel_err": float(np.median(list(rel.values()))), "worst": worst,
+            "worst_rel_err": rel[worst]}
+
+
+@contextlib.contextmanager
+def patched(module, name, wrap):
+    """``module.name`` replaced by ``wrap(original)`` inside the block."""
+    original = getattr(module, name)
+    setattr(module, name, wrap(original))
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def zero_outputs(*which):
+    """Wraps a backward kernel so that the outputs at ``which`` are zero."""
+    def wrap(fn):
+        def faulty(*args):
+            return tuple(torch.zeros_like(t) if i in which else t for i, t in enumerate(fn(*args)))
+        return faulty
+    return wrap
+
+
+@contextlib.contextmanager
+def nudged_dcn_outputs(model, seed: int):
+    """Each DCN layer's output moved by one step of its dtype (bf16 on the
+    card) up or down, or not at all, per element at random: the size of
+    K1's rounding difference from its plain version. The gradient passes
+    unchanged."""
+    from transmvsnet_tpu_torch.models.feature_net import DCN
+
+    gen = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
+
+    def hook(mod, args, out):
+        with torch.no_grad():
+            bits = torch.int16 if out.element_size() == 2 else torch.int32
+            step = torch.randint(-1, 2, out.shape, generator=gen, device=out.device, dtype=bits)
+            moved = (out.contiguous().view(bits) + step * (out != 0)).view(out.dtype)
+            delta = moved - out
+        return out + delta
+
+    handles = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, DCN)]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def grad_comparison(model, state, run) -> dict:
+    """One step's gradients from the same weights, batch, optimizer state
+    and BN buffers through the kernels and through each plain reference
+    (see GRAD_COSINE_MIN), beside two witnesses of bf16 noise (the plain
+    step repeated, and with its DCN outputs nudged) and the kernel step
+    with a fault planted in K3 and in K4, which the gate must catch."""
+    from transmvsnet_tpu_torch.ops import vjp
+    from transmvsnet_tpu_torch.ops.cuda.dcn_bwd import dcn_bwd_plain
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import warp_correlate_bwd_plain
+
+    @contextlib.contextmanager
+    def plain_backward():
+        with patched(vjp, "dcn_bwd", lambda _: dcn_bwd_plain), \
+                patched(vjp, "warp_correlate_bwd", lambda _: warp_correlate_bwd_plain):
+            yield
+
+    model_sd = {k: v.clone() for k, v in model.state_dict().items()}
+    opt_sd = copy.deepcopy(state.optimizer.state_dict())
+    sched_sd = state.scheduler.state_dict()
+    runs = {  # name: (plain ops, context, reference)
+        "plain": (True, contextlib.nullcontext, None),
+        "kernels": (False, contextlib.nullcontext, "plain"),
+        "plain_repeat": (True, contextlib.nullcontext, "plain"),
+        "plain_nudged": (True, lambda: nudged_dcn_outputs(model, seed=2), "plain"),
+        "plain_backward": (False, plain_backward, None),
+        "kernels_vs_plain_backward": (False, contextlib.nullcontext, "plain_backward"),
+        "fault_k3_no_offset_grad": (False, lambda: patched(vjp, "dcn_bwd", zero_outputs(1, 2)), "plain_backward"),
+        "fault_k4_no_dsrc": (False, lambda: patched(vjp, "warp_correlate_bwd", zero_outputs(0)), "plain_backward"),
+    }
+    grads, result = {}, {"cosine_min": GRAD_COSINE_MIN, "bwd_cosine_min": BWD_COSINE_MIN}
+    for name, (plain, context, ref) in runs.items():
+        model.load_state_dict(model_sd)
+        state.optimizer.load_state_dict(copy.deepcopy(opt_sd))
+        state.scheduler.load_state_dict(sched_sd)
+        model.use_plain_ops(plain)
+        with context():
+            run()
+        grads[name] = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+        if ref:
+            result[name] = {"vs": ref, "cosine": group_cosines(grads[name], grads[ref]),
+                            **tensor_errors(grads[name], grads[ref])}
+    model.use_plain_ops(False)
+    print("train path gradients: " + json.dumps(result), flush=True)
+    if not result["kernels"]["cosine"]["all"] >= GRAD_COSINE_MIN:
+        raise AssertionError(f"gradient cosine vs the plain path below {GRAD_COSINE_MIN}: {result['kernels']}")
+    low = {k: c for k, c in result["kernels_vs_plain_backward"]["cosine"].items() if not c >= BWD_COSINE_MIN}
+    if low:
+        raise AssertionError(f"gradient cosine vs the plain backward below {BWD_COSINE_MIN}: {low}")
+    for name in ("fault_k3_no_offset_grad", "fault_k4_no_dsrc"):
+        if min(result[name]["cosine"].values()) >= BWD_COSINE_MIN:
+            raise AssertionError(f"the gradient gate misses the planted {name}: {result[name]}")
     return result
 
 
@@ -326,7 +717,8 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"device: {kind} | nvidia-smi: {smi} | torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
-    # Float32 comparisons on the card in full float32, not TF32.
+    # Comparisons on the card in full float32, not TF32 (the training
+    # step's timed run excepted).
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -341,10 +733,18 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     gen = torch.Generator().manual_seed(1)
-    kernels = [dcn_checks(dev, gen), warp_checks(dev, gen)]
-    result = main_path(dev)
+    kernels = [dcn_checks(dev, gen), warp_checks(dev, gen), dcn_bwd_checks(dev, gen),
+               warp_bwd_checks(dev, gen)]
+    torch.cuda.empty_cache()
+    infer = main_path(dev)
+    torch.cuda.empty_cache()
+    train = train_path(dev)
     for k in kernels:
-        k["launches"] = result["launches"][k["name"]]
+        # Counts over each path's timed run (REQUESTS forwards, TRAIN_STEPS
+        # steps); "launches" is the kernel's main path's.
+        k["launches_by_path"] = {"inference": infer["launches"][k["name"]],
+                                 "train": train["launches"][k["name"]]}
+        k["launches"] = k["launches_by_path"][k["main_path"]]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small and ragged shapes that the main path does not give them (widths
 that are no multiple of a block, every supported channel count, offsets
-and projections that leave the image).
+and projections that leave the image, zero offsets), and the autograd
+Functions that pair them against autograd of the plain forwards.
 
 Needs a CUDA card and nvcc; skips elsewhere. On the GPU machine, which has
 no JAX, run it without the suite's conftest:
@@ -97,3 +98,133 @@ def test_wrappers_raise_on_what_the_kernels_refuse(dev):
     with pytest.raises(ValueError, match="C in"):
         warp_correlate(f, f[:, 0], torch.eye(4, device=dev).expand(1, 1, 4, 4),
                        torch.eye(4, device=dev).expand(1, 4, 4), torch.ones(1, 2, 4, 4, device=dev))
+
+
+def assert_close_f32(got, want, name):
+    """Both sides compute in float32 from the same bf16 inputs; they differ
+    by summation order (atomics land in any order): 1e-4 relative to each
+    value plus 1e-4 of the largest value."""
+    got, want = got.float(), want.float()
+    tol = 1e-4 * want.abs() + 1e-4 * want.abs().max()
+    bad = (got - want).abs() > tol
+    assert not bad.any(), f"{name}: {int(bad.sum())} of {bad.numel()} outside; max {(got - want).abs().max()}"
+
+
+@pytest.mark.parametrize("C,C_out", [(8, 8), (16, 32), (32, 16), (32, 8)])
+@pytest.mark.parametrize("H,W,offsets", [(7, 13, 6.0), (33, 70, 0.0), (33, 70, 1.5)])
+def test_dcn_bwd_matches_plain(dev, C, C_out, H, W, offsets):
+    from transmvsnet_tpu_torch.ops.cuda.dcn_bwd import dcn_bwd, dcn_bwd_plain
+
+    gen = torch.Generator().manual_seed(C * 10 + C_out + H)
+    N = 3
+    x = torch.randn(N, C, H, W, generator=gen).to(dev, torch.bfloat16)
+    # Offsets of 6 px leave a 7x13 image for most taps; 0 puts every tap on
+    # an integer, where the two-tap rule must still give offset gradients.
+    dy = (torch.randn(N, 9, H, W, generator=gen) * offsets).to(dev)
+    dx = (torch.randn(N, 9, H, W, generator=gen) * offsets).to(dev)
+    mask = torch.rand(N, 9, H, W, generator=gen).to(dev)
+    weight = (torch.randn(9, C, C_out, generator=gen) * 0.1).to(dev)
+    g = torch.randn(N, C_out, H, W, generator=gen).to(dev)
+    before = dcn_bwd.launches
+    got = dcn_bwd(x, dy, dx, mask, weight, g)
+    torch.cuda.synchronize()
+    assert dcn_bwd.launches == before + 1
+    want = dcn_bwd_plain(x, dy, dx, mask, weight, g)
+    for a, b, name in zip(got, want, ("dx", "d_offset_y", "d_offset_x", "d_mask", "d_weight")):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        assert_close_f32(a, b, name)
+    assert got[1].abs().max() > 0 and got[2].abs().max() > 0
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("H,W", [(5, 9), (31, 47)])
+def test_warp_correlate_bwd_matches_plain(dev, C, H, W):
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import (
+        warp_correlate_bwd,
+        warp_correlate_bwd_plain,
+    )
+
+    gen = torch.Generator().manual_seed(C + H + 7)
+    B, S, D = 2, 3, 5
+    src = torch.randn(B, S, C, H, W, generator=gen).to(dev, torch.bfloat16)
+    ref = torch.randn(B, C, H, W, generator=gen).to(dev, torch.bfloat16)
+    proj = torch.eye(4).repeat(B, S + 1, 1, 1)
+    proj[..., :3, :3] += 0.02 * torch.randn(B, S + 1, 3, 3, generator=gen)
+    proj[..., 0, 0] = proj[..., 1, 1] = 0.8 * W
+    proj[..., 0, 2], proj[..., 1, 2] = W / 2, H / 2
+    proj[..., 0, 3] = 0.3 * W * torch.arange(S + 1)  # baselines: samples leave the frame
+    depth = 2.0 + 3.0 * torch.rand(B, D, H, W, generator=gen)
+    depth[:, 0, : H // 2] = -1.0  # behind the cameras: no gradient
+    g = torch.randn(B, S, D, H, W, generator=gen)
+    proj, depth, g = proj.to(dev), depth.to(dev), g.to(dev)
+    args = (src, ref, proj[:, 1:].contiguous(), proj[:, 0].contiguous(), depth, g)
+    before = warp_correlate_bwd.launches
+    got = warp_correlate_bwd(*args)
+    torch.cuda.synchronize()
+    assert warp_correlate_bwd.launches == before + 1
+    want = warp_correlate_bwd_plain(*args)
+    for a, b, name in zip(got, want, ("dsrc", "dref")):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        assert_close_f32(a, b, name)
+
+
+def test_autograd_functions_match_plain_autograd(dev):
+    """K1+K3 and K2+K4 behind their autograd Functions against autograd of
+    the plain forwards, on the same bf16 inputs."""
+    from transmvsnet_tpu_torch.ops.cuda.dcn_fused import dcn_fused_plain
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate_plain
+    from transmvsnet_tpu_torch.ops.vjp import dcn_fused_with_vjp, warp_correlate_with_vjp
+
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 16, 19, 23, generator=gen).to(dev, torch.bfloat16)
+    params = [(torch.randn(*s, generator=gen) * sc).to(dev)
+              for s, sc in (((27, 16, 3, 3), 0.1), ((27,), 0.5), ((9, 16, 8), 0.1), ((8,), 0.1))]
+    g = torch.randn(2, 8, 19, 23, generator=gen).to(dev)
+    grads = []
+    for fn in (dcn_fused_with_vjp, dcn_fused_plain):
+        leaves = [x.clone().requires_grad_()] + [p.clone().requires_grad_() for p in params]
+        (fn(*leaves).float() * g).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, b, name in zip(*grads, ("x", "k_off", "b_off", "weight", "bias")):
+        # bf16 forward outputs one step apart at most, float32 backward.
+        torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2 * b.abs().max().item(),
+                                   msg=name)
+
+    B, S, C, D, H, W = 1, 2, 8, 3, 9, 11
+    src = torch.randn(B, S, C, H, W, generator=gen).to(dev, torch.bfloat16)
+    ref = torch.randn(B, C, H, W, generator=gen).to(dev, torch.bfloat16)
+    proj = torch.eye(4).repeat(B, S + 1, 1, 1)
+    proj[..., 0, 0] = proj[..., 1, 1] = 8.0
+    proj[..., 0, 3] = torch.arange(S + 1) * 2.0
+    depth = (2.0 + torch.rand(B, D, H, W, generator=gen)).to(dev)
+    proj = proj.to(dev)
+    g = torch.randn(B, S, D, H, W, generator=gen).to(dev)
+    grads = []
+    for fn in (warp_correlate_with_vjp, warp_correlate_plain):
+        s, r = src.clone().requires_grad_(), ref.clone().requires_grad_()
+        (fn(s, r, proj[:, 1:], proj[:, 0], depth) * g).sum().backward()
+        grads.append((s.grad, r.grad))
+    for a, b, name in zip(*grads, ("src", "ref")):
+        # Gradients rounded to the features' bf16.
+        torch.testing.assert_close(a.float(), b.float(), rtol=2**-7, atol=1e-3 * b.abs().max().item(),
+                                   msg=name)
+
+
+def test_raw_launchers_refuse_inputs_that_need_a_gradient(dev):
+    """The raw K1/K2 calls return tensors without a gradient: with grad mode
+    on they refuse inputs that require one instead of detaching quietly."""
+    from transmvsnet_tpu_torch.ops.cuda.dcn_fused import dcn_fused
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate
+
+    x = torch.zeros(1, 8, 4, 4, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    args = (torch.zeros(27, 8, 3, 3, device=dev), torch.zeros(27, device=dev),
+            torch.zeros(9, 8, 8, device=dev), torch.zeros(8, device=dev))
+    with pytest.raises(RuntimeError, match="no gradient"):
+        dcn_fused(x, *args)
+    with torch.no_grad():
+        assert dcn_fused(x, *args).shape == (1, 8, 4, 4)
+    f = torch.zeros(1, 1, 8, 4, 4, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    eye = torch.eye(4, device=dev)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        warp_correlate(f, f[:, 0].detach(), eye.expand(1, 1, 4, 4), eye.expand(1, 4, 4),
+                       torch.ones(1, 2, 4, 4, device=dev))

@@ -78,6 +78,14 @@ def test_infer_cli_defaults_to_cuda(no_cuda, tmp_path):
                     "--outdir", str(tmp_path / "out"), "--num_view", "3"])
 
 
+def test_train_cli_defaults_to_cuda(no_cuda, tmp_path):
+    from transmvsnet_tpu_torch.tools import train
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--dataset", "synthetic", "--epochs", "1", "--logdir", str(tmp_path)])
+    assert not any(tmp_path.iterdir())  # it raised before writing anything
+
+
 def test_kernel_build_needs_cuda(no_cuda):
     from transmvsnet_tpu_torch.ops.cuda import build
 
@@ -100,3 +108,18 @@ def test_wrappers_refuse_other_devices():
         warp_correlate(torch.empty(1, 1, 8, 4, 4, device=m), torch.empty(1, 8, 4, 4, device=m),
                        torch.empty(1, 1, 4, 4, device=m), torch.empty(1, 4, 4, device=m),
                        torch.empty(1, 2, 4, 4, device=m))
+
+
+def test_backward_wrappers_refuse_other_devices():
+    from transmvsnet_tpu_torch.ops.cuda.dcn_bwd import dcn_bwd
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import warp_correlate_bwd
+
+    m = torch.device("meta")
+    off = torch.empty(1, 9, 4, 4, device=m)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        dcn_bwd(torch.empty(1, 8, 4, 4, device=m), off, off, off, torch.empty(9, 8, 8, device=m),
+                torch.empty(1, 8, 4, 4, device=m))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        warp_correlate_bwd(torch.empty(1, 1, 8, 4, 4, device=m), torch.empty(1, 8, 4, 4, device=m),
+                           torch.empty(1, 1, 4, 4, device=m), torch.empty(1, 4, 4, device=m),
+                           torch.empty(1, 2, 4, 4, device=m), torch.empty(1, 1, 2, 4, 4, device=m))

@@ -1,12 +1,18 @@
-"""Camera-file and pair-file IO for evaluation scans (numpy only).
+"""Camera-file and pair-file IO (numpy only).
 
 The MVSNet cam-txt format: 'extrinsic' + 4x4 on lines 1-4, 'intrinsic' +
-3x3 on lines 7-9, and a depth line (line 11). Evaluation cams carry
-full-resolution intrinsics (divided by 4 here: the model's stage-1
-convention) and a depth line (depth_min, depth_interval[, num_depth[,
-depth_max]]); a 3-or-more-token line re-derives the interval from
-(min, num, interval) (reference datasets/general_eval.py:66-99).
-``cv2`` is imported inside the function that resizes images.
+3x3 on lines 7-9, and a depth line (line 11), read per convention
+(reference datasets/dtu_yao.py:53-67, general_eval.py:66-99):
+
+- "eval": full-resolution intrinsics (divided by 4 here: the model's
+  stage-1 convention) and a depth line (depth_min, depth_interval[,
+  num_depth[, depth_max]]); a 3-or-more-token line re-derives the interval
+  from (min, num, interval).
+- "dtu_train": (depth_min, depth_interval); intrinsics already at 1/4
+  resolution.
+
+The interval is scaled by ``interval_scale`` in both. ``cv2`` is imported
+inside the function that resizes images.
 """
 
 from __future__ import annotations
@@ -31,16 +37,23 @@ class CameraInfo:
         return pair
 
 
-def read_cam_file(path: str, interval_scale: float = 1.0, ndepths: int = 192) -> CameraInfo:
-    """An evaluation cam file, intrinsics scaled to stage-1 resolution."""
+def read_cam_file(
+    path: str, interval_scale: float = 1.0, ndepths: int = 192, convention: str = "eval"
+) -> CameraInfo:
+    """A cam file, intrinsics at stage-1 resolution, read per ``convention``
+    ("eval" or "dtu_train")."""
+    if convention not in ("eval", "dtu_train"):
+        raise ValueError(f"unknown cam convention {convention!r}")
     with open(path) as f:
         lines = [line.rstrip() for line in f.readlines()]
     extr = np.fromstring(" ".join(lines[1:5]), dtype=np.float32, sep=" ").reshape(4, 4)
     intr = np.fromstring(" ".join(lines[7:10]), dtype=np.float32, sep=" ").reshape(3, 3)
-    intr[:2, :] /= 4.0
     tokens = lines[11].split()
     depth_min = float(tokens[0])
     depth_interval = float(tokens[1])
+    if convention == "dtu_train":
+        return CameraInfo(intr, extr, depth_min, depth_interval * interval_scale)
+    intr[:2, :] /= 4.0
     if len(tokens) >= 3:
         depth_max = depth_min + int(float(tokens[2])) * depth_interval
         depth_interval = (depth_max - depth_min) / ndepths

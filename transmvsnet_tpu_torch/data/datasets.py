@@ -1,13 +1,16 @@
-"""DTU-test-style evaluation dataset (reference datasets/general_eval.py).
+"""DTU training and DTU-test-style evaluation datasets (reference
+datasets/dtu_yao.py, general_eval.py).
 
-Produces the model's sample contract, channel-last numpy:
+Both produce the model's sample contract, channel-last numpy:
 
   {"imgs": [V, H, W, 3] float32,
    "proj_matrices": {"stage1".."stage3": [V, 2, 4, 4]},
    "depth_values": [Dh],
-   "filename": "scan/{}/NNNNNNNN{}"}
+   train only: "depth"/"mask": {"stageN": [h, w]}, "depth_interval": float,
+   eval only:  "filename": "scan/{}/NNNNNNNN{}"}
 
-``cv2`` and ``PIL`` are imported inside the functions that read images.
+``cv2`` and ``PIL`` are imported inside the functions that read images;
+nearest-neighbour downsampling is numpy (``resize_nearest``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from transmvsnet_tpu_torch.data.cams import (
     read_pair_file,
     scale_mvs_input,
 )
+from transmvsnet_tpu_torch.data.pfm import read_pfm
 
 
 def _read_img(path: str) -> np.ndarray:
@@ -41,6 +45,25 @@ def stage_proj_matrices(pairs: list[np.ndarray]) -> dict[str, np.ndarray]:
         p[:, 1, :2, :] = proj[:, 1, :2, :] * mult
         out[name] = p
     return out
+
+
+def resize_nearest(arr: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``cv2.resize(arr, (width, height), interpolation=cv2.INTER_NEAREST)``:
+    source index floor(i * src / dst), clamped to the last row/column."""
+    h, w = arr.shape[:2]
+    ys = np.minimum(np.floor(np.arange(height) * (1.0 / (height / h))).astype(np.int64), h - 1)
+    xs = np.minimum(np.floor(np.arange(width) * (1.0 / (width / w))).astype(np.int64), w - 1)
+    return arr[ys[:, None], xs[None, :]]
+
+
+def pyramid(arr: np.ndarray) -> dict[str, np.ndarray]:
+    """stage1 = 1/4, stage2 = 1/2, stage3 = full, nearest (dtu_yao.py:96-122)."""
+    h, w = arr.shape
+    return {
+        "stage1": resize_nearest(arr, w // 4, h // 4),
+        "stage2": resize_nearest(arr, w // 2, h // 2),
+        "stage3": arr,
+    }
 
 
 def read_scan_list(path: str) -> list[str]:
@@ -123,4 +146,90 @@ class GeneralEvalDataset:
             "proj_matrices": stage_proj_matrices(pairs),
             "depth_values": depth_values,
             "filename": scan + "/{}/" + f"{view_ids[0]:0>8}" + "{}",
+        }
+
+
+class DTUTrainDataset:
+    """Yao Yao's preprocessed DTU: 49 viewpoints x 7 lights per scan.
+
+    Images 1600x1200 -> /2 (nearest) and centre crop to 640x512; the PFM
+    depth and the >10-intensity visibility mask go through the same and
+    are pyramided per stage (reference datasets/dtu_yao.py). Layout under
+    ``datapath``: Cameras/pair.txt, Cameras/train/NNNNNNNN_cam.txt,
+    Rectified/<scan>_train/rect_VVV_L_r5000.png,
+    Depths_raw/<scan>/depth_map_VVVV.pfm and depth_visual_VVVV.png.
+    """
+
+    def __init__(
+        self,
+        datapath: str,
+        listfile: str | list[str],
+        mode: str = "train",
+        nviews: int = 5,
+        ndepths: int = 192,
+        interval_scale: float = 1.06,
+    ):
+        if mode not in ("train", "val", "test"):
+            raise ValueError(f"mode must be train, val or test, got {mode!r}")
+        self.datapath = datapath
+        self.mode = mode
+        self.nviews = nviews
+        self.ndepths = ndepths
+        self.interval_scale = interval_scale
+        scans = read_scan_list(listfile) if isinstance(listfile, str) else list(listfile)
+        pairs = read_pair_file(os.path.join(datapath, "Cameras/pair.txt"))
+        self.metas = [
+            (scan, light, ref_view, src_views)
+            for scan in scans
+            for ref_view, src_views in pairs
+            for light in range(7)
+        ]
+
+    def __len__(self) -> int:
+        return len(self.metas)
+
+    @staticmethod
+    def prepare_img(hr_img: np.ndarray) -> np.ndarray:
+        """1600x1200 -> /2 -> centre crop 640x512 (dtu_yao.py:75-89)."""
+        h, w = hr_img.shape[:2]
+        ds = resize_nearest(hr_img, w // 2, h // 2)
+        h, w = ds.shape[:2]
+        sh, sw = (h - 512) // 2, (w - 640) // 2
+        return ds[sh : sh + 512, sw : sw + 640]
+
+    def __getitem__(self, idx: int) -> dict[str, Any]:
+        from PIL import Image
+
+        scan, light, ref_view, src_views = self.metas[idx]
+        view_ids = [ref_view] + src_views[: self.nviews - 1]
+        imgs, pairs = [], []
+        for i, vid in enumerate(view_ids):
+            img_path = os.path.join(
+                self.datapath, f"Rectified/{scan}_train/rect_{vid + 1:0>3}_{light}_r5000.png"
+            )
+            cam_path = os.path.join(self.datapath, f"Cameras/train/{vid:0>8}_cam.txt")
+            cam = read_cam_file(cam_path, interval_scale=self.interval_scale, convention="dtu_train")
+            imgs.append(self.prepare_img(_read_img(img_path)))
+            pairs.append(cam.proj_pair())
+            if i == 0:
+                raw = os.path.join(self.datapath, f"Depths_raw/{scan}")
+                mask_hr = np.asarray(Image.open(f"{raw}/depth_visual_{vid:0>4}.png"), dtype=np.float32)
+                mask_ms = pyramid(self.prepare_img((mask_hr > 10).astype(np.float32)))
+                depth_ms = pyramid(
+                    self.prepare_img(read_pfm(f"{raw}/depth_map_{vid:0>4}.pfm")[0].astype(np.float32))
+                )
+                depth_interval = cam.depth_interval
+                depth_values = np.arange(
+                    cam.depth_min,
+                    cam.depth_interval * self.ndepths + cam.depth_min,
+                    cam.depth_interval,
+                    dtype=np.float32,
+                )
+        return {
+            "imgs": np.stack(imgs).astype(np.float32),
+            "proj_matrices": stage_proj_matrices(pairs),
+            "depth": depth_ms,
+            "mask": mask_ms,
+            "depth_values": depth_values,
+            "depth_interval": np.float32(depth_interval),
         }

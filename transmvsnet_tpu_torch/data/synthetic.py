@@ -1,7 +1,7 @@
 """Procedural multi-view scene with analytic ground-truth depth (numpy only).
 
-A textured slanted plane observed by a ring of pinhole cameras: an
-inference fixture that needs no data on disk. ``materialize`` writes it
+A textured slanted plane observed by a ring of pinhole cameras: a training
+and inference fixture that needs no data on disk. ``materialize`` writes it
 in the DTU evaluation layout (images/, cams/, pair.txt) for the CLI;
 ``cv2`` is imported inside it.
 """
@@ -12,6 +12,8 @@ import os
 from typing import Any
 
 import numpy as np
+
+from transmvsnet_tpu_torch.data.datasets import pyramid
 
 FOCAL = 120.0
 PLANE_NORMAL = (0.15, -0.1, 1.0)
@@ -76,10 +78,13 @@ class SyntheticScene:
 
 
 class SyntheticDataset:
-    """The inference sample contract over SyntheticScene:
-    {"imgs" [V, H, W, 3], "proj_matrices" {"stageN": [V, 2, 4, 4]},
-    "depth_values" [ndepths], "filename"}. ``datapath`` and ``listfile``
-    are accepted for the CLI's sake and unused."""
+    """The sample contract over SyntheticScene, as the JAX package's
+    ``SyntheticDataset`` gives it: {"imgs" [V, H, W, 3], "proj_matrices"
+    {"stageN": [V, 2, 4, 4]}, "depth_values" [ndepths], the training
+    targets "depth" and "mask" {"stageN": [h, w]} (the reference view's
+    depth, nearest-downsampled to 1/4 and 1/2; all valid) and
+    "depth_interval", and "filename"}. ``datapath``, ``listfile`` and
+    ``mode`` are accepted for the CLIs' sake and unused."""
 
     def __init__(
         self,
@@ -101,7 +106,7 @@ class SyntheticDataset:
 
     def __getitem__(self, idx: int) -> dict[str, Any]:
         scene = self.scenes[idx]
-        imgs = [scene.render(v)[0] for v in range(scene.V)]
+        imgs, depths = zip(*(scene.render(v) for v in range(scene.V)))
         lo, hi = scene.depth_range()
         interval = (hi - lo) / self.ndepths
         pairs = np.zeros((scene.V, 2, 4, 4), dtype=np.float32)
@@ -115,10 +120,14 @@ class SyntheticDataset:
             p = pairs.copy()
             p[:, 1, :2, :] *= mult
             stages[name] = p
+        depth_ms = pyramid(depths[0])
         return {
             "imgs": np.stack(imgs),
             "proj_matrices": stages,
+            "depth": depth_ms,
+            "mask": {k: np.ones_like(v) for k, v in depth_ms.items()},
             "depth_values": (lo + np.arange(self.ndepths) * interval).astype(np.float32),
+            "depth_interval": np.float32(interval),
             "filename": f"synth{idx}" + "/{}/" + "00000000{}",
         }
 

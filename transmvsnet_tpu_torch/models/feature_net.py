@@ -13,18 +13,22 @@ import math
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from transmvsnet_tpu_torch.models.blocks import BatchNorm, Conv2d, ConvBnReLU
-from transmvsnet_tpu_torch.ops.cuda.dcn_fused import dcn_fused, dcn_fused_plain
+from transmvsnet_tpu_torch.ops.cuda.dcn_fused import dcn_fused_plain
 from transmvsnet_tpu_torch.ops.sampling import upsample_nearest_2x
+from transmvsnet_tpu_torch.ops.vjp import dcn_fused_with_vjp
 
 
 class DCN(nn.Module):
     """Modulated deformable 3x3 conv with its learned offset/mask conv.
 
     ``weight`` keeps the reference layout [C_out, C_in, 3, 3]; the op takes
-    it tap-major. ``plain`` forces the plain PyTorch version on any device
-    (for holding the kernel path against it on the card).
+    it tap-major. It runs K1 forward and K3 backward on CUDA (each
+    kernel's plain version on the CPU); ``plain`` forces the plain PyTorch
+    forward on any device, differentiated by autograd (for holding the
+    kernel path against it on the card).
     """
 
     def __init__(self, in_ch: int, out_ch: int):
@@ -48,9 +52,15 @@ class DCN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w_taps = self.weight.permute(2, 3, 1, 0).reshape(9, self.weight.shape[1], -1)
-        op = dcn_fused_plain if self.plain else dcn_fused
         # cuDNN may hand back a channels-last result; the kernel reads NCHW.
-        return op(x.contiguous(), self.conv_offset_mask.weight, self.conv_offset_mask.bias, w_taps, self.bias)
+        args = (x.contiguous(), self.conv_offset_mask.weight, self.conv_offset_mask.bias, w_taps, self.bias)
+        if not self.plain:
+            return dcn_fused_with_vjp(*args)
+        if torch.is_grad_enabled():
+            # The plain sampler keeps ~2.5 GB per tap for autograd at a
+            # 10x32x512x640 head; recompute it in the backward instead.
+            return checkpoint(dcn_fused_plain, *args, use_reentrant=False)
+        return dcn_fused_plain(*args)
 
 
 def arf_head(in_ch: int, mid: int, out: int, lead_kernel: int = 3) -> nn.Sequential:

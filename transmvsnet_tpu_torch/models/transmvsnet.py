@@ -21,13 +21,14 @@ from transmvsnet_tpu_torch.models.blocks import init_parameters, resolve_device
 from transmvsnet_tpu_torch.models.cost_reg import CostRegNet, PixelwiseNet
 from transmvsnet_tpu_torch.models.feature_net import DCN, FeatureNet
 from transmvsnet_tpu_torch.models.fmt import FMTWithPathway
-from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate, warp_correlate_plain
+from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate_plain
 from transmvsnet_tpu_torch.ops.geometry import (
     fuse_projection,
     initial_depth_samples,
     refine_depth_samples,
 )
 from transmvsnet_tpu_torch.ops.sampling import resize_bilinear, upsample_nearest_2x
+from transmvsnet_tpu_torch.ops.vjp import warp_correlate_with_vjp
 
 
 def depth_wta(prob_volume: torch.Tensor, depth_values: torch.Tensor) -> torch.Tensor:
@@ -74,8 +75,9 @@ class TransMVSNet(nn.Module):
         self.to(device)
 
     def use_plain_ops(self, plain: bool) -> None:
-        """Route both kernels' call sites to their plain PyTorch versions on
-        any device (True), or back to the kernels (False)."""
+        """Route both kernels' call sites to their plain PyTorch forwards on
+        any device, differentiated by autograd (True), or back to the
+        kernels' autograd Functions (False)."""
         self.plain_ops = plain
         for m in self.modules():
             if isinstance(m, DCN):
@@ -107,7 +109,7 @@ class TransMVSNet(nn.Module):
         S = V - 1
         D = depth_values.shape[1]
         fused = fuse_projection(proj.float())
-        warp = warp_correlate_plain if self.plain_ops else warp_correlate
+        warp = warp_correlate_plain if self.plain_ops else warp_correlate_with_vjp
         sim = warp(
             features[:, 1:].contiguous(),
             features[:, 0].contiguous(),

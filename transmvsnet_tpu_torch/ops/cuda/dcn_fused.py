@@ -65,11 +65,18 @@ def dcn_fused(
 ) -> torch.Tensor:
     """DCNv2, 3x3, stride 1, pad 1, one deformable group, with its offset/
     mask conv inside. Arguments as ``dcn_fused_plain``; on CUDA, x must be
-    bfloat16. Returns [B, C_out, H, W] in x's dtype."""
+    bfloat16. Returns [B, C_out, H, W] in x's dtype. The CUDA result has no
+    gradient, so with grad mode on, inputs that require one raise;
+    ``ops.vjp.dcn_fused_with_vjp`` is the differentiable call."""
     if x.device.type == "cpu":
         return dcn_fused_plain(x, k_off, b_off, weight, bias)
     if x.device.type != "cuda":
         raise ValueError(f"dcn_fused runs on cuda or cpu tensors, got {x.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, k_off, b_off, weight, bias)):
+        raise RuntimeError(
+            "dcn_fused's kernel output has no gradient: call it under torch.no_grad() "
+            "or through ops.vjp.dcn_fused_with_vjp"
+        )
     B, C, H, W, C_out = _check(x, k_off, b_off, weight, bias)
     # Weight rows ordered (tap, c) to match the kernel's loops.
     woff = k_off.float().permute(2, 3, 1, 0).reshape(9 * C, 27).contiguous()

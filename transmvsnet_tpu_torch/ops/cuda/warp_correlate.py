@@ -52,6 +52,7 @@ def warp_correlate_plain(
 
 
 def _check(src, ref, src_proj, ref_proj, depth) -> tuple[int, int, int, int, int, int]:
+    """What the forward and backward kernels take; returns (B, S, C, D, H, W)."""
     if src.dtype != torch.bfloat16 or ref.dtype != torch.bfloat16:
         raise TypeError(f"warp_correlate kernel takes bfloat16 features, got {src.dtype}, {ref.dtype}")
     if depth.dtype != torch.float32:
@@ -78,6 +79,13 @@ def _check(src, ref, src_proj, ref_proj, depth) -> tuple[int, int, int, int, int
     return B, S, C, D, H, W
 
 
+def relative_rows(src_proj: torch.Tensor, ref_proj: torch.Tensor) -> torch.Tensor:
+    """The kernels' [B*S, 3, 4] float32 rows of P_src @ P_ref^-1."""
+    B, S = src_proj.shape[:2]
+    ref_b = ref_proj.float()[:, None].expand(B, S, 4, 4)
+    return relative_projection(src_proj.float(), ref_b)[..., :3, :].contiguous()
+
+
 def warp_correlate(
     src: torch.Tensor,
     ref: torch.Tensor,
@@ -86,14 +94,21 @@ def warp_correlate(
     depth: torch.Tensor,
 ) -> torch.Tensor:
     """Arguments as ``warp_correlate_plain``; on CUDA, src and ref must be
-    bfloat16 and depth float32. Returns [B, S, D, H, W] float32."""
+    bfloat16 and depth float32. Returns [B, S, D, H, W] float32. The CUDA
+    result has no gradient, so with grad mode on, features that require
+    one raise; ``ops.vjp.warp_correlate_with_vjp`` is the differentiable
+    call."""
     if src.device.type == "cpu":
         return warp_correlate_plain(src, ref, src_proj, ref_proj, depth)
     if src.device.type != "cuda":
         raise ValueError(f"warp_correlate runs on cuda or cpu tensors, got {src.device}")
+    if torch.is_grad_enabled() and (src.requires_grad or ref.requires_grad):
+        raise RuntimeError(
+            "warp_correlate's kernel output has no gradient: call it under torch.no_grad() "
+            "or through ops.vjp.warp_correlate_with_vjp"
+        )
     B, S, C, D, H, W = _check(src, ref, src_proj, ref_proj, depth)
-    ref_b = ref_proj.float()[:, None].expand(B, S, 4, 4)
-    rel = relative_projection(src_proj.float(), ref_b)[..., :3, :].contiguous()
+    rel = relative_rows(src_proj, ref_proj)
     out = torch.empty((B, S, D, H, W), dtype=torch.float32, device=src.device)
     lib = build.library("warp_correlate")
     fn = lib.warp_correlate_forward

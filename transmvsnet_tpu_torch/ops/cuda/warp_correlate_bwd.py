@@ -1,0 +1,81 @@
+"""Warp-correlation backward: CUDA kernel ``csrc/warp_correlate_bwd.cu`` and
+its plain version.
+
+Replaces the TPU kernel ``transmvsnet_tpu/ops/pallas/warp_bwd.py::
+warp_correlate_bwd``. All S source views of a batch go through one
+launch. ``warp_correlate_bwd`` launches the kernel for a CUDA tensor and
+takes ``warp_correlate_bwd_plain`` only for a CPU tensor; anything the
+kernel does not take raises. ``warp_correlate_bwd.launches`` counts kernel
+launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from transmvsnet_tpu_torch.ops.cuda import build
+from transmvsnet_tpu_torch.ops.cuda.warp_correlate import (
+    _check,
+    relative_rows,
+    warp_correlate_plain,
+)
+
+
+def warp_correlate_bwd_plain(
+    src: torch.Tensor,
+    ref: torch.Tensor,
+    src_proj: torch.Tensor,
+    ref_proj: torch.Tensor,
+    depth: torch.Tensor,
+    g: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in plain PyTorch: autograd of
+    ``warp_correlate_plain`` in float32 with respect to the features.
+    src [B, S, C, H, W]; ref [B, C, H, W]; fused projections [B, S, 4, 4]
+    and [B, 4, 4]; depth [B, D, H, W]; g [B, S, D, H, W]. Returns
+    (dsrc, dref), float32."""
+    with torch.enable_grad():
+        s = src.detach().float().requires_grad_()
+        r = ref.detach().float().requires_grad_()
+        out = warp_correlate_plain(s, r, src_proj.detach(), ref_proj.detach(), depth.detach())
+        return torch.autograd.grad(out, (s, r), g.float())
+
+
+def warp_correlate_bwd(
+    src: torch.Tensor,
+    ref: torch.Tensor,
+    src_proj: torch.Tensor,
+    ref_proj: torch.Tensor,
+    depth: torch.Tensor,
+    g: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gradients (dsrc, dref) of ``warp_correlate``, float32. Arguments as
+    ``warp_correlate_bwd_plain``; on CUDA, src and ref must be bfloat16 and
+    depth float32. Projections and depth get no gradient."""
+    if src.device.type == "cpu":
+        return warp_correlate_bwd_plain(src, ref, src_proj, ref_proj, depth, g)
+    if src.device.type != "cuda":
+        raise ValueError(f"warp_correlate_bwd runs on cuda or cpu tensors, got {src.device}")
+    B, S, C, D, H, W = _check(src, ref, src_proj, ref_proj, depth)
+    if tuple(g.shape) != (B, S, D, H, W) or g.device != src.device:
+        raise ValueError(f"g must be [{B}, {S}, {D}, {H}, {W}] on {src.device}, got {tuple(g.shape)}")
+    rel = relative_rows(src_proj, ref_proj)
+    gf = g.float().contiguous()
+    dsrc = torch.zeros((B, S, C, H, W), dtype=torch.float32, device=src.device)
+    dref = torch.zeros((B, C, H, W), dtype=torch.float32, device=src.device)
+    lib = build.library("warp_correlate_bwd")
+    fn = lib.warp_correlate_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    code = fn(
+        src.data_ptr(), ref.data_ptr(), rel.data_ptr(), depth.data_ptr(), gf.data_ptr(),
+        dsrc.data_ptr(), dref.data_ptr(), B * S, S, C, D, H, W, build.stream_handle(src),
+    )
+    build.check(lib, "warp_correlate_bwd", code)
+    warp_correlate_bwd.launches += 1
+    return dsrc, dref
+
+
+warp_correlate_bwd.launches = 0

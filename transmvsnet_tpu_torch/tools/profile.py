@@ -1,14 +1,17 @@
-"""Profile the inference forward on the card with torch.profiler.
+"""Profile the inference forward, or a training step, on the card with
+torch.profiler.
 
-    python -m transmvsnet_tpu_torch.tools.profile [--logdir ./traces]
-        [--height 864 --width 1152 --nviews 5 --ndepths 48,32,8]
+    python -m transmvsnet_tpu_torch.tools.profile [--train] [--logdir ./traces]
+        [--nviews 5 --ndepths 48,32,8]
 
-Warm-up forwards, then ``--iters`` forwards traced with CPU and CUDA
-activity. Prints one JSON line: wall milliseconds per forward (CUDA
-events), device-busy milliseconds per forward (the union of the traced
+Warm-up passes, then ``--iters`` passes traced with CPU and CUDA activity;
+a pass is one forward at the DTU eval setting (batch 1, 1152x864) or, with
+``--train``, one ``train/step.py`` step with Adam at the DTU recipe (batch
+2, 512x640). Prints one JSON line: wall milliseconds per pass
+(CUDA events), device-busy milliseconds per pass (the union of the traced
 kernels' intervals), the device's idle share, the kernels that take the
 most device time, the port's own kernels' totals, and every launch of
-1 ms or more in the first traced forward, in order. With ``--logdir`` it
+1 ms or more in the first traced pass, in order. With ``--logdir`` it
 also writes a Chrome trace.
 Weights are random from a seeded generator; bf16 activations.
 """
@@ -24,10 +27,9 @@ import torch
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="Profile the inference forward (PyTorch/CUDA)")
+    p = argparse.ArgumentParser(description="Profile the inference forward or a train step (PyTorch/CUDA)")
     p.add_argument("--logdir", default="", help="write a Chrome trace here")
-    p.add_argument("--height", type=int, default=864)
-    p.add_argument("--width", type=int, default=1152)
+    p.add_argument("--train", action="store_true", help="profile train steps instead of forwards")
     p.add_argument("--nviews", type=int, default=5)
     p.add_argument("--ndepths", default="48,32,8")
     p.add_argument("--warmup", type=int, default=2)
@@ -49,28 +51,37 @@ def busy_us(intervals: list[tuple[float, float]]) -> float:
 
 def main(argv=None):
     args = parse_args(argv)
+    # (batch, height, width): the DTU recipe for training, DTU eval else.
+    batch_size, height, width = (2, 512, 640) if args.train else (1, 864, 1152)
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA card; torch.cuda.is_available() is false")
     from torch.profiler import ProfilerActivity, profile
 
     from transmvsnet_tpu_torch.config import ModelConfig
-    from transmvsnet_tpu_torch.data.example import example_inputs
+    from transmvsnet_tpu_torch.data.example import example_train_batch
     from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
+    from transmvsnet_tpu_torch.train.loop import to_device_batch
+    from transmvsnet_tpu_torch.train.schedule import make_optimizer, warmup_multistep
+    from transmvsnet_tpu_torch.train.step import TrainState, make_train_step
 
     dev = torch.device("cuda", 0)
     cfg = ModelConfig(ndepths=tuple(int(x) for x in args.ndepths.split(",")),
                       compute_dtype="bfloat16")
-    model = TransMVSNet(cfg, device=dev, generator=torch.Generator().manual_seed(0)).eval()
-    imgs, projs, dv = example_inputs(V=args.nviews, H=args.height, W=args.width)
-    inputs = (
-        torch.from_numpy(imgs).to(dev),
-        {k: torch.from_numpy(v).to(dev) for k, v in projs.items()},
-        torch.from_numpy(dv).to(dev),
-    )
+    model = TransMVSNet(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    batch = to_device_batch(example_train_batch(B=batch_size, V=args.nviews, H=height, W=width), dev)
 
-    def forward():
-        with torch.no_grad():
-            model(*inputs)
+    if args.train:
+        state = TrainState(model, *make_optimizer(model.parameters(), warmup_multistep(1e-3, [10**6], 0.5)))
+        train_step = make_train_step()
+
+        def forward():
+            train_step(state, batch)
+    else:
+        model.eval()
+
+        def forward():
+            with torch.no_grad():
+                model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
 
     for _ in range(args.warmup):
         forward()
@@ -96,23 +107,25 @@ def main(argv=None):
     first = sorted(kernels, key=lambda e: e.time_range.start)[: len(kernels) // args.iters]
     result = {
         "device": torch.cuda.get_device_name(0),
-        "shape": [1, args.nviews, args.height, args.width],
+        "pass": "train_step" if args.train else "forward",
+        "shape": [batch_size, args.nviews, height, width],
         "ndepths": list(cfg.ndepths),
-        "wall_ms_per_forward": wall_ms,
-        "device_busy_ms_per_forward": device_ms,
+        "wall_ms_per_pass": wall_ms,
+        "device_busy_ms_per_pass": device_ms,
         "idle_share": 1.0 - device_ms / wall_ms,
-        "kernel_launches_per_forward": len(kernels) / args.iters,
+        "kernel_launches_per_pass": len(kernels) / args.iters,
         "top_kernels": [
-            {"name": name[:120], "ms_per_forward": us / 1e3 / args.iters,
-             "launches_per_forward": n / args.iters}
+            {"name": name[:120], "ms_per_pass": us / 1e3 / args.iters,
+             "launches_per_pass": n / args.iters}
             for name, (us, n) in top
         ],
         "port_kernels": {
-            k: {"ms_per_forward": sum(v[0] for n, v in by_name.items() if k in n) / 1e3 / args.iters,
-                "launches_per_forward": sum(v[1] for n, v in by_name.items() if k in n) / args.iters}
-            for k in ("dcn_fused_kernel", "warp_correlate_kernel")
+            k: {"ms_per_pass": sum(v[0] for n, v in by_name.items() if k in n) / 1e3 / args.iters,
+                "launches_per_pass": sum(v[1] for n, v in by_name.items() if k in n) / args.iters}
+            for k in ("dcn_fused_kernel", "warp_correlate_kernel", "dcn_bwd_kernel", "dcn_bwd_dw_kernel",
+                      "warp_correlate_bwd_kernel")
         },
-        # Launches of 1 ms or more in the first traced forward, in order.
+        # Launches of 1 ms or more in the first traced pass, in order.
         "long_launches": [
             [e.name[:80], e.time_range.elapsed_us() / 1e3] for e in first
             if e.time_range.elapsed_us() >= 1e3
@@ -121,7 +134,8 @@ def main(argv=None):
     print(json.dumps(result))
     if args.logdir:
         os.makedirs(args.logdir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(args.logdir, "forward_trace.json"))
+        name = "train_step_trace.json" if args.train else "forward_trace.json"
+        prof.export_chrome_trace(os.path.join(args.logdir, name))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,145 @@
+"""Training CLI: the reference train.py surface on one CUDA card.
+
+    # DTU from scratch (reference scripts/train.sh recipe: 512x640, 5 views,
+    # batch 2, 48/32/8 hypotheses; bf16 activations):
+    python -m transmvsnet_tpu_torch.tools.train --dataset dtu \\
+        --datapath /data/dtu --trainlist lists/dtu/train.txt \\
+        --testlist lists/dtu/val.txt --logdir ./ckpt --epochs 16
+
+    # A run that needs no data on disk:
+    python -m transmvsnet_tpu_torch.tools.train --dataset synthetic --epochs 1
+
+The flags of the JAX package's ``tools/train.py`` without its TPU and mesh
+ones, plus ``--device`` (CUDA unless ``--device cpu``). On CUDA the DCN and
+warp-correlation layers run their forward and backward kernels, which take
+bfloat16 activations, so ``--dtype float32`` runs only with
+``--device cpu``. Checkpoints are ``<logdir>/model_NNNNNN.ckpt`` in the
+reference's layout; ``--resume`` continues from the latest, ``--loadckpt``
+loads weights only.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from transmvsnet_tpu_torch.config import ModelConfig
+from transmvsnet_tpu_torch.data.datasets import DTUTrainDataset
+from transmvsnet_tpu_torch.data.loader import ShardedLoader
+from transmvsnet_tpu_torch.data.synthetic import SyntheticDataset
+from transmvsnet_tpu_torch.models.blocks import resolve_device
+from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
+from transmvsnet_tpu_torch.tools.infer import load_checkpoint
+from transmvsnet_tpu_torch.train.checkpoint import restore_latest, save_checkpoint
+from transmvsnet_tpu_torch.train.loop import MetricsLogger, run_epoch
+from transmvsnet_tpu_torch.train.schedule import make_optimizer, warmup_multistep
+from transmvsnet_tpu_torch.train.step import TrainState, make_eval_step, make_train_step
+
+DATASETS = {"dtu": DTUTrainDataset, "dtu_yao": DTUTrainDataset, "synthetic": SyntheticDataset}
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="TransMVSNet training (PyTorch/CUDA)")
+    p.add_argument("--dataset", default="dtu", choices=sorted(DATASETS))
+    p.add_argument("--datapath", default="")
+    p.add_argument("--trainlist", default="")
+    p.add_argument("--testlist", default="")
+    p.add_argument("--logdir", default="./checkpoints")
+    p.add_argument("--loadckpt", default="", help="weights only, from a .ckpt state dict")
+    p.add_argument("--resume", action="store_true", help="continue from <logdir>'s latest .ckpt")
+    p.add_argument("--epochs", type=int, default=16)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--lrepochs", default="6,8,12:2")
+    p.add_argument("--wd", type=float, default=1e-4)
+    p.add_argument("--batch_size", type=int, default=2)
+    p.add_argument("--nviews", type=int, default=5)
+    p.add_argument("--numdepth", type=int, default=192)
+    p.add_argument("--interval_scale", type=float, default=1.06)
+    p.add_argument("--ndepths", default="48,32,8")
+    p.add_argument("--depth_inter_r", default="4,1,0.5")
+    p.add_argument("--dlossw", default="1.0,1.0,1.0")
+    p.add_argument("--loss", default="cascade", choices=["cascade", "bld"])
+    p.add_argument("--seed", type=int, default=1)
+    p.add_argument("--summary_freq", type=int, default=50)
+    p.add_argument("--save_freq", type=int, default=1)
+    p.add_argument("--eval_freq", type=int, default=1)
+    p.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"],
+                   help="activation dtype (geometry and losses stay float32); the CUDA "
+                        "kernels take bfloat16, so float32 runs only with --device cpu")
+    p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    return p.parse_args(argv)
+
+
+def build_dataset(args, split: str):
+    kwargs = dict(
+        datapath=args.datapath,
+        listfile=args.trainlist if split == "train" else args.testlist,
+        mode=split,
+        nviews=args.nviews,
+        ndepths=args.numdepth,
+    )
+    if args.dataset != "synthetic":
+        kwargs["interval_scale"] = args.interval_scale
+    return DATASETS[args.dataset](**kwargs)
+
+
+def main(argv=None) -> TrainState:
+    args = parse_args(argv)
+    device = resolve_device(args.device)
+    np.random.seed(args.seed)
+
+    cfg = ModelConfig(
+        ndepths=tuple(int(x) for x in args.ndepths.split(",")),
+        depth_interval_ratios=tuple(float(x) for x in args.depth_inter_r.split(",")),
+        compute_dtype=args.dtype,
+    )
+    dlossw = tuple(float(x) for x in args.dlossw.split(","))
+    model = TransMVSNet(cfg, device=device, generator=torch.Generator().manual_seed(args.seed))
+    if args.loadckpt:
+        load_checkpoint(model, args.loadckpt)
+        print(f"loaded weights from {args.loadckpt}")
+
+    train_ds = build_dataset(args, "train")
+    val_ds = train_ds if args.dataset == "synthetic" else build_dataset(args, "val")
+    train_loader = ShardedLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed, drop_last=True)
+    val_loader = ShardedLoader(val_ds, args.batch_size, shuffle=False, drop_last=True)
+
+    steps_per_epoch = max(len(train_loader), 1)
+    milestones, gamma = args.lrepochs.split(":")
+    schedule = warmup_multistep(
+        args.lr, [steps_per_epoch * int(e) for e in milestones.split(",")], 1.0 / float(gamma)
+    )
+    optimizer, scheduler = make_optimizer(model.parameters(), schedule, weight_decay=args.wd)
+    state = TrainState(model, optimizer, scheduler)
+    start_epoch = 0
+    if args.resume:
+        epoch = restore_latest(args.logdir, state)
+        if epoch is not None:
+            start_epoch = epoch + 1
+            print(f"resumed from epoch {epoch} (step {state.step})")
+
+    logger = MetricsLogger(args.logdir)
+    bld = args.loss == "bld"
+    train_step = make_train_step(dlossw, with_bld_metrics=bld)
+    eval_step = make_eval_step(dlossw, with_bld_metrics=bld)
+    for epoch in range(start_epoch, args.epochs):
+        train_loader.set_epoch(epoch)
+        state, means = run_epoch(train_step, state, train_loader, device, train=True, logger=logger,
+                                 mode="train", log_freq=args.summary_freq, epoch=epoch)
+        print(f"epoch {epoch} train: {means}")
+        logger.log("train_epoch", means, epoch)
+        if (epoch + 1) % args.eval_freq == 0:
+            _, means = run_epoch(eval_step, state, val_loader, device, train=False, logger=logger,
+                                 mode="val", log_freq=args.summary_freq, epoch=epoch)
+            print(f"epoch {epoch} val: {means}")
+            logger.log("val_epoch", means, epoch)
+        if (epoch + 1) % args.save_freq == 0:
+            save_checkpoint(args.logdir, epoch, state)
+    logger.close()
+    return state
+
+
+if __name__ == "__main__":
+    main()
