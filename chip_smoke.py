@@ -1,4 +1,5 @@
-"""GPU smoke run of the PyTorch/CUDA port: DTU inference and DTU training.
+"""GPU smoke run of the PyTorch/CUDA port: DTU inference and DTU training,
+in bfloat16 and in float32 (the JAX package's default).
 
     python3 chip_smoke.py
 
@@ -7,24 +8,29 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this repository's
 
 1. Device: the card's name and power limit (nvidia-smi).
 2. Build: compile every kernel under ``transmvsnet_tpu_torch/csrc``.
-3. Kernel checks: each kernel against its plain PyTorch version on the
-   card, on the same bfloat16 inputs, at every shape its path gives it;
-   kernel and plain times by CUDA events.
-4. Inference path: the cascade at 1152x864, 5 views, batch 1, 48/32/8
-   hypotheses, bfloat16, random weights from a seeded generator; a few
-   requests with the launch counts read around them; the same model and
-   inputs with the plain ops for agreement; depth-maps/s, peak memory and
-   one forward's time by part of the model.
-5. Training path: ``train/step.py`` at the DTU recipe (512x640, 5 views,
-   batch 2, 48/32/8, bfloat16, Adam) from seeded random weights; a
-   warm-up step and a few timed steps, in the train CLI's arithmetic
-   (cuDNN's default TF32), with the launch counts read around them; ms
-   per step split into forward, backward and optimizer, depth maps
-   trained per second, peak memory; then one step's gradients
+3. Kernel checks: each kernel instantiation against its plain PyTorch
+   version on the card, on the same inputs, at every shape its path gives
+   it; kernel and plain times by CUDA events. bf16: K1-K4; float32: K5,
+   K6 and K3/K4's float instantiations; K5's bf16 instantiation (row 4,
+   on no model path) at the bf16 DCN shapes.
+4. Inference paths: the cascade at 1152x864, 5 views, batch 1, 48/32/8
+   hypotheses, random weights from a seeded generator, in bfloat16 and
+   then in float32; a few requests with the launch counts read around
+   them; the same model and inputs with the plain ops for agreement;
+   depth-maps/s, peak memory and one forward's time by part of the model.
+   The float32 requests are timed in PyTorch's default arithmetic (cuDNN
+   may use TF32) and compared in full float32.
+5. Training paths: ``train/step.py`` at the DTU recipe (512x640, 5 views,
+   batch 2, 48/32/8, Adam) from seeded random weights, in bfloat16 and in
+   float32; a warm-up step and a few timed steps, in the train CLI's
+   arithmetic (cuDNN's default TF32), with the launch counts read around
+   them; ms per step split into forward, backward and optimizer, depth
+   maps trained per second, peak memory; then one step's gradients
    against the same step on the plain ops and with the plain backward
-   (see GRAD_COSINE_MIN), beside two witnesses of bf16 noise and two
-   planted kernel faults the gate must catch.
-6. Last line: ``{"ok": true, "device": {...}}``.
+   (see GRAD_COSINE_MIN and F32_COSINE_MIN), beside witnesses of the
+   noise and planted kernel faults the gates must catch.
+6. The kernel line, the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -39,7 +45,9 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
-BF16_FLOPS_PER_S = 989e12  # dense bf16 tensor-core peak, same source
+# Peak operations per second by the kernel's arithmetic type, same source:
+# dense bf16 on the tensor cores; float32 on the CUDA cores (non-tensor).
+FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 H, W, V, B = 864, 1152, 5, 1
 NDEPTHS = (48, 32, 8)
 NUM_HYP = 192
@@ -52,7 +60,7 @@ TRAIN_STEPS = 3
 #   which moves stage-2/3 hypotheses through the argmax; per group this
 #   reaches the noise floor (the plain step with its DCN outputs nudged by
 #   one bf16 step agrees with it no better), so groups are printed only.
-# - the same K1/K2 forward with K3/K4's plain versions in the backward:
+# - the same kernel forward with K3/K4's plain versions in the backward:
 #   identical activations, so each group's cosine is gated at
 #   BWD_COSINE_MIN, and a fault planted in K3 or K4 must fall below it.
 # Groups: FeatureNet (whose gradient passes through K3, and through K4 for
@@ -65,7 +73,17 @@ GRAD_GROUPS = {
     "rest": lambda n: not n.startswith("feature."),
 }
 GRAD_COSINE_MIN = 0.99
-BWD_COSINE_MIN = 0.999
+# Per activation dtype, set from the printed witness of the same noise,
+# the plain step repeated (cuDNN's atomics): bf16 1 - 3e-5, float32
+# 1 - 1e-8 at worst, on an NVIDIA H100 80GB HBM3 at a 700 W power limit.
+BWD_COSINE_MIN = {"bfloat16": 0.999, "float32": 0.9999}
+# float32 also gates each group against the plain step. There is no bf16
+# noise floor, but the two forwards still differ by float32 rounding,
+# which moves a few stage-2/3 hypotheses through the argmax: the kernels'
+# worst group (FeatureNet) read 1 - 9e-6, 1 - 1.5e-4 and 1 - 5.8e-4 in
+# three runs on that card, and the plain step with every DCN output nudged
+# by one float32 step, the witness of that noise, 1 - 1.7e-4.
+F32_COSINE_MIN = 0.995
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -82,10 +100,10 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, dtype: torch.dtype) -> dict:
     """The least time the card could take: bytes over HBM bandwidth and
-    operations over the bf16 tensor-core peak, the larger of the two."""
-    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / BF16_FLOPS_PER_S
+    operations over the peak for their type, the larger of the two."""
+    t_bytes, t_ops = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / FLOPS_PER_S[dtype]
     return {"bound_ms": max(t_bytes, t_ops), "bytes_ms": t_bytes, "ops_ms": t_ops,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -122,6 +140,12 @@ def head_shapes(h: int, w: int) -> list[tuple[int, int, int, int]]:
 PATHS = {"inference": (B, H, W), "train": (TRAIN_B, TRAIN_H, TRAIN_W)}
 
 
+def suffix(dtype: torch.dtype) -> str:
+    """Name suffix of a kernel's float32 instantiation and of the float32
+    paths ("inference_f32", "train_f32")."""
+    return "_f32" if dtype == torch.float32 else ""
+
+
 def dcn_checks(dev, gen) -> dict:
     from transmvsnet_tpu_torch.ops.cuda.dcn_fused import dcn_fused, dcn_fused_plain
 
@@ -156,7 +180,7 @@ def dcn_checks(dev, gen) -> dict:
             pix = N * h * w
             nbytes = 2 * pix * C + 2 * pix * c_out + 4 * (27 * C * 9 + 27 + 9 * C * c_out + c_out)
             flops = 2 * pix * 9 * C * (27 + c_out + 4)
-            bd = bound(nbytes, flops)
+            bd = bound(nbytes, flops, torch.bfloat16)
             rows.append(dict(path=path, shape=[N, C, h, w, c_out], per_pass=per_pass, ms=ms,
                              plain_ms=plain_ms, **bd, **res))
             print(f"dcn_fused {path} {[N, C, h, w, c_out]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
@@ -168,22 +192,84 @@ def dcn_checks(dev, gen) -> dict:
                      "transmvsnet_tpu/ops/pallas/dcn_onehot.py:610", rows, "inference")
 
 
+def dcn_given_checks(dev, gen, dtype) -> dict:
+    """K5 (DCN with given offsets and mask) in one activation type at every
+    DCN shape of both paths. float32 is the float32 paths' DCN (row 5);
+    bf16 is row 4, which no model path runs (the bf16 layers take K1): its
+    figures are for the nine DCN layers of a bf16 forward, 0 launches."""
+    from transmvsnet_tpu_torch.ops.cuda.dcn import deform_conv2d, deform_conv2d_plain
+
+    name = "dcn_f32" if dtype == torch.float32 else "dcn_bf16"
+    C = 32
+    rows = []
+    for path, (b, ph, pw) in PATHS.items():
+        for h, w, c_out, per_pass in head_shapes(ph, pw):
+            N = b * V
+
+            def rnd(*shape, s=1.0):
+                return (torch.randn(*shape, generator=gen) * s).to(dev)
+
+            x = rnd(N, C, h, w).to(dtype)
+            # Offsets of about a pixel and a half, non-integer, some taps
+            # off the image at every border; masks in (0, 1).
+            dy, dx = rnd(N, 9, h, w, s=1.5), rnd(N, 9, h, w, s=1.5)
+            mask = torch.rand(N, 9, h, w, generator=gen).to(dev)
+            weight = rnd(9, C, c_out, s=0.1)
+            bias = rnd(c_out, s=0.1)
+            args = (x, dy, dx, mask, weight, bias)
+            got = deform_conv2d(*args)
+            want = deform_conv2d_plain(*args)
+            torch.cuda.synchronize()
+            if dtype == torch.bfloat16:
+                # Both round one float32 result to bfloat16: one bf16 step
+                # (2^-7 relative) apart at most, plus summation-order noise.
+                res = check_close(got, want, rtol=2.0**-7, atol_scale=1e-3)
+            else:
+                # Float32 on both sides, summed in another order.
+                res = check_close(got, want, rtol=1e-4, atol_scale=1e-4)
+            if res["n_outside"]:
+                raise AssertionError(f"{name} disagrees at {(N, C, h, w, c_out)}: {res}")
+            del got, want
+            ms = cuda_ms(lambda: deform_conv2d(*args), iters=10)
+            plain_ms = cuda_ms(lambda: deform_conv2d_plain(*args), iters=2, warmup=1)
+            pix, es = N * h * w, x.element_size()
+            # x and the output in the activation type; offsets, mask,
+            # weight and bias float32.
+            nbytes = es * pix * (C + c_out) + 4 * pix * 27 + 4 * (9 * C * c_out + c_out)
+            # Per (pixel, tap, channel): the contraction (C_out
+            # multiply-adds) and the bilinear sample (~4).
+            flops = 2 * pix * 9 * C * (c_out + 4)
+            bd = bound(nbytes, flops, dtype)
+            rows.append(dict(path=path + suffix(dtype), shape=[N, C, h, w, c_out], per_pass=per_pass,
+                             ms=ms, plain_ms=plain_ms, **bd, **res))
+            print(f"{name} {path} {[N, C, h, w, c_out]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                  f"bound_ms {bd['bound_ms']:.4f} ({bd['bound_by']}) "
+                  f"max_abs_err {res['max_abs_err']:.3g}", flush=True)
+            del x, dy, dx, mask, args
+            torch.cuda.empty_cache()
+    replaces = ("transmvsnet_tpu/ops/pallas/dcn_rowsweep.py:219" if dtype == torch.float32
+                else "transmvsnet_tpu/ops/pallas/dcn_onehot.py:716")
+    return summarise(name, "transmvsnet_tpu_torch/csrc/dcn.cu", replaces, rows,
+                     "inference" + suffix(dtype))
+
+
 # (stage, C, D) of the three plane sweeps.
 SWEEPS = [("stage1", 32, NDEPTHS[0]), ("stage2", 16, NDEPTHS[1]), ("stage3", 8, NDEPTHS[2])]
 
 
-def sweep_inputs(gen, dev, b, ph, pw, stage_index, stage, C, D):
+def sweep_inputs(gen, dev, b, ph, pw, stage_index, stage, C, D, dtype):
     """Features, hypotheses and fused projections of one plane sweep for
-    b batches of V views at ph x pw: random features, hypotheses across
-    the DTU range with a band behind the cameras (source z < 1e-6)."""
+    b batches of V views at ph x pw: random features in ``dtype``,
+    hypotheses across the DTU range with a band behind the cameras
+    (source z < 1e-6)."""
     from transmvsnet_tpu_torch.data.example import DEPTH_MAX, DEPTH_MIN, example_inputs
     from transmvsnet_tpu_torch.ops.geometry import fuse_projection
 
     _, projs, _ = example_inputs(B=b, V=V, H=ph, W=pw)
     scale = 2 ** (2 - stage_index)
     h, w = ph // scale, pw // scale
-    src = torch.randn(b, V - 1, C, h, w, generator=gen).to(dev, torch.bfloat16)
-    ref = torch.randn(b, C, h, w, generator=gen).to(dev, torch.bfloat16)
+    src = torch.randn(b, V - 1, C, h, w, generator=gen).to(dev, dtype)
+    ref = torch.randn(b, C, h, w, generator=gen).to(dev, dtype)
     base = torch.linspace(DEPTH_MIN, DEPTH_MAX, D)[None, :, None, None]
     depth = base + 5.0 * torch.rand(b, D, h, w, generator=gen)
     depth[:, :, : h // 16] *= -1.0
@@ -192,17 +278,20 @@ def sweep_inputs(gen, dev, b, ph, pw, stage_index, stage, C, D):
     return src, ref, fused[:, 1:].contiguous(), fused[:, 0].contiguous(), depth
 
 
-def warp_checks(dev, gen) -> dict:
+def warp_checks(dev, gen, dtype) -> dict:
+    """K2 (bf16 features) or K6 (float32 features) at every plane sweep of
+    both paths."""
     from transmvsnet_tpu_torch.ops.cuda.warp_correlate import (
         warp_correlate,
         warp_correlate_plain,
     )
 
+    name = "warp_correlate" + suffix(dtype)
     S = V - 1
     rows = []
     for path, (b, ph, pw) in PATHS.items():
         for i, (stage, C, D) in enumerate(SWEEPS):
-            args = sweep_inputs(gen, dev, b, ph, pw, i, stage, C, D)
+            args = sweep_inputs(gen, dev, b, ph, pw, i, stage, C, D, dtype)
             h, w = args[0].shape[-2:]
             got = warp_correlate(*args)
             want = warp_correlate_plain(*args)
@@ -211,27 +300,30 @@ def warp_checks(dev, gen) -> dict:
             # multiply-adds in the projection (~1e-5 px of sample position).
             res = check_close(got, want, rtol=1e-3, atol_scale=1e-3)
             if res["n_outside"]:
-                raise AssertionError(f"warp_correlate disagrees at {path} {stage}: {res}")
+                raise AssertionError(f"{name} disagrees at {path} {stage}: {res}")
             valid = (want != 0).float().mean().item()
             del got, want
             ms = cuda_ms(lambda: warp_correlate(*args), iters=50, warmup=5)
             plain_ms = cuda_ms(lambda: warp_correlate_plain(*args), iters=2, warmup=1)
             n_out = b * S * D * h * w
-            nbytes = 2 * (b * S + b) * C * h * w + 4 * b * D * h * w + 4 * n_out + 4 * b * S * 12
+            es = args[0].element_size()
+            nbytes = es * (b * S + b) * C * h * w + 4 * b * D * h * w + 4 * n_out + 4 * b * S * 12
             # Projection (~12) per output; bilinear sample and product
             # (~10 C) only where the sample is valid, as this run's data
             # needs.
             flops = n_out * (12 + valid * 10 * C)
-            bd = bound(nbytes, flops)
-            rows.append(dict(path=path, shape=[b * S, C, D, h, w], per_pass=1, ms=ms,
+            bd = bound(nbytes, flops, dtype)
+            rows.append(dict(path=path + suffix(dtype), shape=[b * S, C, D, h, w], per_pass=1, ms=ms,
                              plain_ms=plain_ms, nonzero_share=valid, **bd, **res))
-            print(f"warp_correlate {path} {[b * S, C, D, h, w]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
+            print(f"{name} {path} {[b * S, C, D, h, w]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
                   f"bound_ms {bd['bound_ms']:.4f} ({bd['bound_by']}) "
                   f"max_abs_err {res['max_abs_err']:.3g} nonzero {valid:.3f}", flush=True)
             del args
             torch.cuda.empty_cache()
-    return summarise("warp_correlate", "transmvsnet_tpu_torch/csrc/warp_correlate.cu",
-                     "transmvsnet_tpu/ops/pallas/warp_onehot.py:291", rows, "inference")
+    replaces = ("transmvsnet_tpu/ops/pallas/warp_rowsweep.py:230" if dtype == torch.float32
+                else "transmvsnet_tpu/ops/pallas/warp_onehot.py:291")
+    return summarise(name, "transmvsnet_tpu_torch/csrc/warp_correlate.cu", replaces, rows,
+                     "inference" + suffix(dtype))
 
 
 def check_all(got, want, rtol, atol_scale, what) -> dict:
@@ -244,9 +336,12 @@ def check_all(got, want, rtol, atol_scale, what) -> dict:
             "scale": max(r["scale"] for r in results), "tolerance": results[0]["tolerance"]}
 
 
-def dcn_bwd_checks(dev, gen) -> dict:
+def dcn_bwd_checks(dev, gen, dtype) -> dict:
+    """K3's instantiation for ``dtype`` at every DCN shape of the training
+    path."""
     from transmvsnet_tpu_torch.ops.cuda.dcn_bwd import dcn_bwd, dcn_bwd_plain
 
+    name = "dcn_bwd" + suffix(dtype)
     # The ARF heads' DCN layers at the training resolution, batch 2 x 5 views.
     C, N = 32, TRAIN_B * V
     rows = []
@@ -254,7 +349,7 @@ def dcn_bwd_checks(dev, gen) -> dict:
         def rnd(*shape, s=1.0):
             return (torch.randn(*shape, generator=gen) * s).to(dev)
 
-        x = rnd(N, C, h, w).to(torch.bfloat16)
+        x = rnd(N, C, h, w).to(dtype)
         mask = torch.rand(N, 9, h, w, generator=gen).to(dev)
         weight = rnd(9, C, c_out, s=0.1)
         g = rnd(N, c_out, h, w)
@@ -269,42 +364,46 @@ def dcn_bwd_checks(dev, gen) -> dict:
             torch.cuda.synchronize()
             # Same float32 arithmetic on the same sample positions; sums
             # (and the atomics into dx and dw) in another order.
-            res = check_all(got, want, 1e-3, 1e-4, f"dcn_bwd {(N, C, h, w, c_out)} offsets {off_scale}")
+            res = check_all(got, want, 1e-3, 1e-4, f"{name} {(N, C, h, w, c_out)} offsets {off_scale}")
             if off_scale == 0.0 and not (got[1].abs().max() > 0 and got[2].abs().max() > 0):
-                raise AssertionError("dcn_bwd: zero offsets got no offset gradient (two-tap rule)")
+                raise AssertionError(f"{name}: zero offsets got no offset gradient (two-tap rule)")
             del got, want
         ms = cuda_ms(lambda: dcn_bwd(*args), iters=5, warmup=1)
         plain_ms = cuda_ms(lambda: dcn_bwd_plain(*args), iters=1, warmup=1)
         pix = N * h * w
-        nbytes = (2 * pix * C + 4 * pix * (3 * 9 + c_out) + 4 * 9 * C * c_out  # x, dy/dx/mask, g, w
-                  + 4 * pix * (C + 3 * 9) + 4 * 9 * C * c_out)                  # dx, ddy/ddx/dm, dw
+        nbytes = (x.element_size() * pix * C + 4 * pix * (3 * 9 + c_out)  # x, dy/dx/mask, g
+                  + 4 * 9 * C * c_out                                     # w
+                  + 4 * pix * (C + 3 * 9) + 4 * 9 * C * c_out)            # dx, ddy/ddx/dm, dw
         # q = W^T g and dw: 2 * 9 C C_out multiply-adds per pixel; sampling,
         # offset and mask gradients and the scatter: ~20 operations per
         # (tap, channel).
         flops = pix * 9 * C * (4 * c_out + 20)
-        bd = bound(nbytes, flops)
-        rows.append(dict(path="train", shape=[N, C, h, w, c_out], per_pass=per_step, ms=ms,
-                         plain_ms=plain_ms, **bd, **res))
-        print(f"dcn_bwd {[N, C, h, w, c_out]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        bd = bound(nbytes, flops, dtype)
+        rows.append(dict(path="train" + suffix(dtype), shape=[N, C, h, w, c_out], per_pass=per_step,
+                         ms=ms, plain_ms=plain_ms, **bd, **res))
+        print(f"{name} {[N, C, h, w, c_out]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
               f"bound_ms {bd['bound_ms']:.4f} ({bd['bound_by']}) "
               f"max_abs_err {res['max_abs_err']:.3g} at scale {res['scale']:.3g}", flush=True)
         del x, mask, weight, g, args
         torch.cuda.empty_cache()
-    return summarise("dcn_bwd", "transmvsnet_tpu_torch/csrc/dcn_bwd.cu",
-                     "transmvsnet_tpu/ops/pallas/dcn_bwd.py:410", rows, "train")
+    return summarise(name, "transmvsnet_tpu_torch/csrc/dcn_bwd.cu",
+                     "transmvsnet_tpu/ops/pallas/dcn_bwd.py:410", rows, "train" + suffix(dtype))
 
 
-def warp_bwd_checks(dev, gen) -> dict:
+def warp_bwd_checks(dev, gen, dtype) -> dict:
+    """K4's instantiation for ``dtype`` at every plane sweep of the training
+    path."""
     from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate
     from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import (
         warp_correlate_bwd,
         warp_correlate_bwd_plain,
     )
 
+    name = "warp_correlate_bwd" + suffix(dtype)
     Bt, S = TRAIN_B, V - 1
     rows = []
     for i, (stage, C, D) in enumerate(SWEEPS):
-        fwd_args = sweep_inputs(gen, dev, Bt, TRAIN_H, TRAIN_W, i, stage, C, D)
+        fwd_args = sweep_inputs(gen, dev, Bt, TRAIN_H, TRAIN_W, i, stage, C, D, dtype)
         h, w = fwd_args[0].shape[-2:]
         g = torch.randn(Bt, S, D, h, w, generator=gen).to(dev)
         args = (*fwd_args, g)
@@ -313,37 +412,38 @@ def warp_bwd_checks(dev, gen) -> dict:
         torch.cuda.synchronize()
         # As K2: float32 arithmetic up to summation order (atomics) and
         # fused multiply-adds in the projection (~1e-5 px of position).
-        res = check_all(got, want, 1e-3, 1e-3, f"warp_correlate_bwd at {stage}")
+        res = check_all(got, want, 1e-3, 1e-3, f"{name} at {stage}")
         del got, want
         ms = cuda_ms(lambda: warp_correlate_bwd(*args), iters=10, warmup=2)
         plain_ms = cuda_ms(lambda: warp_correlate_bwd_plain(*args), iters=1, warmup=1)
         with torch.no_grad():
             valid = (warp_correlate(*fwd_args) != 0).float().mean().item()
         n_out = Bt * S * D * h * w
-        nbytes = (2 * (Bt * S + Bt) * C * h * w + 4 * Bt * D * h * w + 4 * n_out  # src, ref, depth, g
-                  + 4 * (Bt * S + Bt) * C * h * w + 4 * Bt * S * 12)              # dsrc, dref, rel
+        es = fwd_args[0].element_size()
+        nbytes = (es * (Bt * S + Bt) * C * h * w + 4 * Bt * D * h * w + 4 * n_out  # src, ref, depth, g
+                  + 4 * (Bt * S + Bt) * C * h * w + 4 * Bt * S * 12)               # dsrc, dref, rel
         # Projection (~12) per (view, hypothesis, pixel); where the sample
         # is valid (as this run's data needs), per channel the bilinear
         # sample (~8), the dref product (2) and the scatter (~8).
         flops = n_out * (12 + valid * 18 * C)
-        bd = bound(nbytes, flops)
-        rows.append(dict(path="train", shape=[Bt * S, C, D, h, w], per_pass=1, ms=ms,
+        bd = bound(nbytes, flops, dtype)
+        rows.append(dict(path="train" + suffix(dtype), shape=[Bt * S, C, D, h, w], per_pass=1, ms=ms,
                          plain_ms=plain_ms, nonzero_share=valid, **bd, **res))
-        print(f"warp_correlate_bwd {[Bt * S, C, D, h, w]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
+        print(f"{name} {[Bt * S, C, D, h, w]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
               f"bound_ms {bd['bound_ms']:.4f} ({bd['bound_by']}) "
               f"max_abs_err {res['max_abs_err']:.3g} at scale {res['scale']:.3g} nonzero {valid:.3f}",
               flush=True)
         del fwd_args, g, args
         torch.cuda.empty_cache()
-    return summarise("warp_correlate_bwd", "transmvsnet_tpu_torch/csrc/warp_correlate_bwd.cu",
-                     "transmvsnet_tpu/ops/pallas/warp_bwd.py:504", rows, "train")
+    return summarise(name, "transmvsnet_tpu_torch/csrc/warp_correlate_bwd.cu",
+                     "transmvsnet_tpu/ops/pallas/warp_bwd.py:504", rows, "train" + suffix(dtype))
 
 
 def summarise(name, source, replaces, rows, main) -> dict:
-    """One kernel's entry: times and bound per pass of each path that runs
-    it (a forward for inference, a step for training: each shape's figure
-    times its launches per pass), headed by the ``main`` path's; worst
-    error over all shapes."""
+    """One kernel instantiation's entry: times and bound per pass of each
+    path that runs it (a forward for inference, a step for training: each
+    shape's figure times its launches per pass), headed by the ``main``
+    path's; worst error over all shapes."""
     def per_pass(path, key):
         return sum(r[key] * r["per_pass"] for r in rows if r["path"] == path)
 
@@ -361,23 +461,61 @@ def summarise(name, source, replaces, rows, main) -> dict:
     }
 
 
-def kernel_wrappers() -> dict:
-    """Each kernel's wrapper, whose ``launches`` counts its launches."""
+def kernel_counters() -> dict:
+    """Each kernel instantiation's launch counter, as (wrapper, attribute):
+    a wrapper's ``launches`` counts its bf16 instantiation, ``launches_f32``
+    its float32 one."""
+    from transmvsnet_tpu_torch.ops.cuda.dcn import deform_conv2d
     from transmvsnet_tpu_torch.ops.cuda.dcn_bwd import dcn_bwd
     from transmvsnet_tpu_torch.ops.cuda.dcn_fused import dcn_fused
     from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate
     from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import warp_correlate_bwd
 
-    return {f.__name__: f for f in (dcn_fused, warp_correlate, dcn_bwd, warp_correlate_bwd)}
+    return {
+        "dcn_fused": (dcn_fused, "launches"),
+        "warp_correlate": (warp_correlate, "launches"),
+        "dcn_bwd": (dcn_bwd, "launches"),
+        "warp_correlate_bwd": (warp_correlate_bwd, "launches"),
+        "dcn_f32": (deform_conv2d, "launches_f32"),
+        "dcn_bf16": (deform_conv2d, "launches"),
+        "warp_correlate_f32": (warp_correlate, "launches_f32"),
+        "dcn_bwd_f32": (dcn_bwd, "launches_f32"),
+        "warp_correlate_bwd_f32": (warp_correlate_bwd, "launches_f32"),
+    }
 
 
 def reset_launches() -> None:
-    for f in kernel_wrappers().values():
-        f.launches = 0
+    for f, attr in kernel_counters().values():
+        setattr(f, attr, 0)
 
 
 def read_launches() -> dict:
-    return {name: f.launches for name, f in kernel_wrappers().items()}
+    return {name: getattr(f, attr) for name, (f, attr) in kernel_counters().items()}
+
+
+def expect_launches(launches: dict, per_pass: dict, passes: int, what: str) -> None:
+    """Raise unless each kernel in ``per_pass`` launched exactly that many
+    times per pass and every other kernel not at all."""
+    want = {name: per_pass.get(name, 0) * passes for name in launches}
+    if launches != want:
+        raise AssertionError(f"{what}: expected {per_pass} launches per pass over {passes}: {launches}")
+
+
+# Kernel launches per forward, and per training step, of each dtype's path.
+FORWARD_LAUNCHES = {
+    "bfloat16": {"dcn_fused": 9, "warp_correlate": 3},
+    "float32": {"dcn_f32": 9, "warp_correlate_f32": 3},
+}
+STEP_LAUNCHES = {
+    "bfloat16": {"dcn_fused": 9, "warp_correlate": 3, "dcn_bwd": 9, "warp_correlate_bwd": 3},
+    "float32": {"dcn_f32": 9, "warp_correlate_f32": 3, "dcn_bwd_f32": 9, "warp_correlate_bwd_f32": 3},
+}
+
+
+def cudnn_default_arithmetic():
+    """PyTorch's default arithmetic, in which cuDNN may use TF32: what the
+    CLIs run. The rest of this script runs in full float32."""
+    return torch.backends.cudnn.flags(enabled=True, allow_tf32=True)
 
 
 def module_breakdown(model, forward) -> dict:
@@ -423,14 +561,20 @@ def module_breakdown(model, forward) -> dict:
     return out
 
 
-def main_path(dev) -> dict:
+def main_path(dev, dtype_name: str) -> dict:
+    """The inference path in one activation dtype. The bf16 requests run in
+    full float32 arithmetic elsewhere (TF32 off); the float32 ones in
+    PyTorch's default arithmetic, as the inference CLI runs them. Kernels
+    and plain ops are compared in full float32 either way."""
     from transmvsnet_tpu_torch.config import ModelConfig
     from transmvsnet_tpu_torch.data.example import DEPTH_MAX, DEPTH_MIN, example_inputs
     from transmvsnet_tpu_torch.models.feature_net import DCN
     from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
 
+    f32 = dtype_name == "float32"
+    what = f"inference path ({dtype_name})"
     gen = torch.Generator().manual_seed(0)
-    cfg = ModelConfig(ndepths=NDEPTHS, compute_dtype="bfloat16")
+    cfg = ModelConfig(ndepths=NDEPTHS, compute_dtype=dtype_name)
     model = TransMVSNet(cfg, device=dev, generator=gen).eval()
     # The reference zero-initialises the offset convs; random weights and
     # biases (offsets of about a pixel, non-integer) exercise the
@@ -450,38 +594,37 @@ def main_path(dev) -> dict:
         with torch.no_grad():
             return model(t_imgs, t_projs, t_dv)
 
-    forward()  # warm-up: cuDNN plans and the allocator
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(REQUESTS):
-        out = forward()
-    end.record()
-    torch.cuda.synchronize()
-    launches = read_launches()
-    ms_per_map = start.elapsed_time(end) / REQUESTS
-    peak = torch.cuda.max_memory_allocated()
-    print(f"inference path: {REQUESTS} requests, launches {launches}", flush=True)
-    want = {"dcn_fused": 9 * REQUESTS, "warp_correlate": 3 * REQUESTS, "dcn_bwd": 0, "warp_correlate_bwd": 0}
-    if launches != want:
-        raise AssertionError(f"expected 9 dcn_fused and 3 warp_correlate launches per forward: {launches}")
+    with cudnn_default_arithmetic() if f32 else contextlib.nullcontext():
+        forward()  # warm-up: cuDNN plans and the allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(REQUESTS):
+            out = forward()
+        end.record()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        ms_per_map = start.elapsed_time(end) / REQUESTS
+        peak = torch.cuda.max_memory_allocated()
+        print(f"{what}: {REQUESTS} requests, launches {launches}", flush=True)
+        expect_launches(launches, FORWARD_LAUNCHES[dtype_name], REQUESTS, what)
+        breakdown = module_breakdown(model, forward)
 
+    out = forward()  # in full float32 arithmetic, as the plain path below
     for s in ("stage1", "stage2", "stage3"):
         d, dvals = out[s]["depth"], out[s]["depth_values"]
         conf = out[s]["photo_confidence"]
         if not torch.isfinite(d).all() or not torch.isfinite(out[s]["prob_volume"]).all():
-            raise AssertionError(f"{s}: non-finite output")
+            raise AssertionError(f"{what} {s}: non-finite output")
         lo, hi = dvals.amin(dim=1), dvals.amax(dim=1)
         if not ((d >= lo) & (d <= hi)).all():
-            raise AssertionError(f"{s}: depth outside its hypothesis range")
+            raise AssertionError(f"{what} {s}: depth outside its hypothesis range")
         if not ((conf >= 0) & (conf <= 1)).all():
-            raise AssertionError(f"{s}: confidence outside [0, 1]")
+            raise AssertionError(f"{what} {s}: confidence outside [0, 1]")
     if tuple(out["depth"].shape) != (B, H, W):
-        raise AssertionError(f"depth shape {tuple(out['depth'].shape)}")
-
-    breakdown = module_breakdown(model, forward)
+        raise AssertionError(f"{what}: depth shape {tuple(out['depth'].shape)}")
 
     model.use_plain_ops(True)
     forward()
@@ -495,6 +638,7 @@ def main_path(dev) -> dict:
         for s in ("stage1", "stage2", "stage3")
     }
     result = {
+        "dtype": dtype_name,
         "depth_maps_per_s": 1e3 / ms_per_map,
         "ms_per_depth_map": ms_per_map,
         "plain_ops_ms_per_depth_map": plain_ms,
@@ -504,11 +648,11 @@ def main_path(dev) -> dict:
         "stage3_depth_within_one_interval_of_plain": agree,
         "max_abs_dprob_vs_plain": dprob,
     }
-    print("inference path: " + json.dumps(result), flush=True)
+    print(f"{what}: " + json.dumps(result), flush=True)
     return result
 
 
-def train_path(dev) -> dict:
+def train_path(dev, dtype_name: str) -> dict:
     from transmvsnet_tpu_torch.config import ModelConfig
     from transmvsnet_tpu_torch.data.example import example_train_batch
     from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
@@ -516,7 +660,8 @@ def train_path(dev) -> dict:
     from transmvsnet_tpu_torch.train.schedule import make_optimizer, warmup_multistep
     from transmvsnet_tpu_torch.train.step import TrainState, make_train_step
 
-    cfg = ModelConfig(ndepths=NDEPTHS, compute_dtype="bfloat16")
+    what = f"train path ({dtype_name})"
+    cfg = ModelConfig(ndepths=NDEPTHS, compute_dtype=dtype_name)
     # The reference's initialisation (offset convs at zero), seeded.
     model = TransMVSNet(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     # DTU-recipe inputs: example cameras, a smooth depth target inside the
@@ -530,7 +675,7 @@ def train_path(dev) -> dict:
         _, scalars = train_step(state, batch, mark)
         losses.append(scalars["loss"].item())
         if scalars["skipped_nan"].item():
-            raise AssertionError(f"train step skipped a non-finite loss: {losses}")
+            raise AssertionError(f"{what}: train step skipped a non-finite loss: {losses}")
 
     marks: dict[str, list] = {k: [] for k in ("start", "forward", "backward", "optimizer")}
 
@@ -540,9 +685,10 @@ def train_path(dev) -> dict:
         marks[phase].append(e)
 
     # Timed in the arithmetic tools/train.py runs: PyTorch's default, in
-    # which cuDNN may use TF32 (the DCN backward's offset recompute turns
-    # it off for itself). The rest of this script runs in full float32.
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+    # which cuDNN may use TF32 (the fused DCN backward's offset recompute
+    # turns it off for itself). The rest of this script runs in full
+    # float32.
+    with cudnn_default_arithmetic():
         run()  # warm-up: cuDNN plans, the allocator, offsets off the integers
         torch.cuda.synchronize()
         before = [p.detach().clone() for p in model.parameters()]
@@ -555,14 +701,13 @@ def train_path(dev) -> dict:
     launches = read_launches()
     peak = torch.cuda.max_memory_allocated()
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
-    print(f"train path: {TRAIN_STEPS} steps, launches {launches}", flush=True)
-    if per_step != {"dcn_fused": 9, "warp_correlate": 3, "dcn_bwd": 9, "warp_correlate_bwd": 3}:
-        raise AssertionError(f"expected 9 K1, 3 K2, 9 K3 and 3 K4 launches per step: {launches}")
+    print(f"{what}: {TRAIN_STEPS} steps, launches {launches}", flush=True)
+    expect_launches(launches, STEP_LAUNCHES[dtype_name], TRAIN_STEPS, what)
     if not all(np.isfinite(losses)):
-        raise AssertionError(f"non-finite loss: {losses}")
+        raise AssertionError(f"{what}: non-finite loss: {losses}")
     changed = sum(int(not torch.equal(a, p.detach())) for a, p in zip(before, model.parameters()))
     if changed != len(before):
-        raise AssertionError(f"only {changed} of {len(before)} parameter tensors changed")
+        raise AssertionError(f"{what}: only {changed} of {len(before)} parameter tensors changed")
     split = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
     for i in range(TRAIN_STEPS):
         prev = marks["start"][i]
@@ -572,6 +717,7 @@ def train_path(dev) -> dict:
     ms_per_step = sum(split.values())
 
     result = {
+        "dtype": dtype_name,
         "ms_per_step": ms_per_step,
         "ms_by_phase": split,
         "depth_maps_trained_per_s": 1e3 * TRAIN_B / ms_per_step,
@@ -579,9 +725,12 @@ def train_path(dev) -> dict:
         "launches": launches,
         "launches_per_step": per_step,
         "losses": losses,
+        "losses_falling": losses[-1] < losses[0],
     }
-    print("train path: " + json.dumps(result), flush=True)
-    result["gradients"] = grad_comparison(model, state, run)
+    print(f"{what}: " + json.dumps(result), flush=True)
+    if not result["losses_falling"]:
+        raise AssertionError(f"{what}: the loss did not fall over {len(losses)} steps: {losses}")
+    result["gradients"] = grad_comparison(model, state, run, dtype_name)
     return result
 
 
@@ -627,10 +776,10 @@ def zero_outputs(*which):
 
 @contextlib.contextmanager
 def nudged_dcn_outputs(model, seed: int):
-    """Each DCN layer's output moved by one step of its dtype (bf16 on the
-    card) up or down, or not at all, per element at random: the size of
-    K1's rounding difference from its plain version. The gradient passes
-    unchanged."""
+    """Each DCN layer's output moved by one step of its dtype (bf16 or
+    float32) up or down, or not at all, per element at random: the size of
+    a DCN kernel's rounding difference from its plain version. The
+    gradient passes unchanged."""
     from transmvsnet_tpu_torch.models.feature_net import DCN
 
     gen = torch.Generator(device=next(model.parameters()).device).manual_seed(seed)
@@ -651,12 +800,14 @@ def nudged_dcn_outputs(model, seed: int):
             h.remove()
 
 
-def grad_comparison(model, state, run) -> dict:
+def grad_comparison(model, state, run, dtype_name: str) -> dict:
     """One step's gradients from the same weights, batch, optimizer state
     and BN buffers through the kernels and through each plain reference
-    (see GRAD_COSINE_MIN), beside two witnesses of bf16 noise (the plain
-    step repeated, and with its DCN outputs nudged) and the kernel step
-    with a fault planted in K3 and in K4, which the gate must catch."""
+    (see GRAD_COSINE_MIN), beside two witnesses of the noise (the plain
+    step repeated, and with its DCN outputs nudged by one step of the
+    activation type) and the kernel step with a fault planted in K3 and in
+    K4, which the per-group gate must catch. float32 also gates every
+    group against the plain step (F32_COSINE_MIN)."""
     from transmvsnet_tpu_torch.ops import vjp
     from transmvsnet_tpu_torch.ops.cuda.dcn_bwd import dcn_bwd_plain
     from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import warp_correlate_bwd_plain
@@ -680,7 +831,11 @@ def grad_comparison(model, state, run) -> dict:
         "fault_k3_no_offset_grad": (False, lambda: patched(vjp, "dcn_bwd", zero_outputs(1, 2)), "plain_backward"),
         "fault_k4_no_dsrc": (False, lambda: patched(vjp, "warp_correlate_bwd", zero_outputs(0)), "plain_backward"),
     }
-    grads, result = {}, {"cosine_min": GRAD_COSINE_MIN, "bwd_cosine_min": BWD_COSINE_MIN}
+    f32 = dtype_name == "float32"
+    bwd_min = BWD_COSINE_MIN[dtype_name]
+    grads = {}
+    result = {"dtype": dtype_name, "bwd_cosine_min": bwd_min,
+              **({"group_cosine_min": F32_COSINE_MIN} if f32 else {"cosine_min": GRAD_COSINE_MIN})}
     for name, (plain, context, ref) in runs.items():
         model.load_state_dict(model_sd)
         state.optimizer.load_state_dict(copy.deepcopy(opt_sd))
@@ -693,14 +848,18 @@ def grad_comparison(model, state, run) -> dict:
             result[name] = {"vs": ref, "cosine": group_cosines(grads[name], grads[ref]),
                             **tensor_errors(grads[name], grads[ref])}
     model.use_plain_ops(False)
-    print("train path gradients: " + json.dumps(result), flush=True)
-    if not result["kernels"]["cosine"]["all"] >= GRAD_COSINE_MIN:
+    print(f"train path ({dtype_name}) gradients: " + json.dumps(result), flush=True)
+    if f32:
+        low = {k: c for k, c in result["kernels"]["cosine"].items() if not c >= F32_COSINE_MIN}
+        if low:
+            raise AssertionError(f"gradient cosine vs the plain path below {F32_COSINE_MIN}: {low}")
+    elif not result["kernels"]["cosine"]["all"] >= GRAD_COSINE_MIN:
         raise AssertionError(f"gradient cosine vs the plain path below {GRAD_COSINE_MIN}: {result['kernels']}")
-    low = {k: c for k, c in result["kernels_vs_plain_backward"]["cosine"].items() if not c >= BWD_COSINE_MIN}
+    low = {k: c for k, c in result["kernels_vs_plain_backward"]["cosine"].items() if not c >= bwd_min}
     if low:
-        raise AssertionError(f"gradient cosine vs the plain backward below {BWD_COSINE_MIN}: {low}")
+        raise AssertionError(f"gradient cosine vs the plain backward below {bwd_min}: {low}")
     for name in ("fault_k3_no_offset_grad", "fault_k4_no_dsrc"):
-        if min(result[name]["cosine"].values()) >= BWD_COSINE_MIN:
+        if min(result[name]["cosine"].values()) >= bwd_min:
             raise AssertionError(f"the gradient gate misses the planted {name}: {result[name]}")
     return result
 
@@ -733,17 +892,23 @@ def main() -> int:
                 print(f"  ptxas {name}: {line.strip()}")
 
     gen = torch.Generator().manual_seed(1)
-    kernels = [dcn_checks(dev, gen), warp_checks(dev, gen), dcn_bwd_checks(dev, gen),
-               warp_bwd_checks(dev, gen)]
-    torch.cuda.empty_cache()
-    infer = main_path(dev)
-    torch.cuda.empty_cache()
-    train = train_path(dev)
+    bf16, f32 = torch.bfloat16, torch.float32
+    kernels = [dcn_checks(dev, gen), warp_checks(dev, gen, bf16), dcn_bwd_checks(dev, gen, bf16),
+               warp_bwd_checks(dev, gen, bf16), dcn_given_checks(dev, gen, f32),
+               dcn_given_checks(dev, gen, bf16), warp_checks(dev, gen, f32),
+               dcn_bwd_checks(dev, gen, f32), warp_bwd_checks(dev, gen, f32)]
+    paths = {}
+    for dtype_name in ("bfloat16", "float32"):
+        sfx = suffix(getattr(torch, dtype_name))
+        torch.cuda.empty_cache()
+        paths["inference" + sfx] = main_path(dev, dtype_name)
+        torch.cuda.empty_cache()
+        paths["train" + sfx] = train_path(dev, dtype_name)
     for k in kernels:
         # Counts over each path's timed run (REQUESTS forwards, TRAIN_STEPS
-        # steps); "launches" is the kernel's main path's.
-        k["launches_by_path"] = {"inference": infer["launches"][k["name"]],
-                                 "train": train["launches"][k["name"]]}
+        # steps); "launches" is the kernel's main path's (0 for row 4's
+        # bf16 K5, which no path runs).
+        k["launches_by_path"] = {p: r["launches"][k["name"]] for p, r in paths.items()}
         k["launches"] = k["launches_by_path"][k["main_path"]]
     print(json.dumps({"kernels": kernels}))
     print(smi)

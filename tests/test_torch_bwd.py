@@ -119,8 +119,10 @@ def test_dcn_bwd_wrapper_on_cpu_is_the_plain_version():
 
 def test_dcn_bwd_checks_refuse_what_the_kernel_does_not_take():
     x, dy, dx, mask, w, g = (nchw(a) if a.ndim == 4 else torch.from_numpy(a) for a in dcn_case())
-    with pytest.raises(TypeError, match="bfloat16"):
-        k3._check(x, dy, dx, mask, w, g)
+    # Two instantiations, float32 and bf16; float16 has none.
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        k3._check(x.half(), dy, dx, mask, w, g)
+    assert k3._check(x, dy, dx, mask, w, g) == (2, 8, 9, 11, 16)
     xb = x.to(torch.bfloat16)
     assert k3._check(xb, dy, dx, mask, w, g) == (2, 8, 9, 11, 16)
     with pytest.raises(ValueError, match="offset_y"):

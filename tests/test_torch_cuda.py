@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at small and ragged shapes that the main path does not give them (widths
 that are no multiple of a block, every supported channel count, offsets
-and projections that leave the image, zero offsets), and the autograd
-Functions that pair them against autograd of the plain forwards.
+and projections that leave the image, zero offsets), each instantiation
+(bf16: K1-K4, K5's row-4 instantiation; float32: K5, K6, K3 and K4), and
+the autograd Functions that pair them against autograd of the plain
+forwards, in both activation types.
 
 Needs a CUDA card and nvcc; skips elsewhere. On the GPU machine, which has
 no JAX, run it without the suite's conftest:
@@ -87,17 +89,26 @@ def test_warp_correlate_matches_plain(dev, C, H, W):
 
 
 def test_wrappers_raise_on_what_the_kernels_refuse(dev):
+    from transmvsnet_tpu_torch.ops.cuda.dcn import deform_conv2d
     from transmvsnet_tpu_torch.ops.cuda.dcn_fused import dcn_fused
     from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate
 
-    x = torch.randn(1, 32, 4, 4, device=dev)  # float32: the kernel takes bf16
+    x = torch.randn(1, 32, 4, 4, device=dev)  # float32: K1 takes bf16 only
     with pytest.raises(TypeError, match="bfloat16"):
         dcn_fused(x, torch.zeros(27, 32, 3, 3, device=dev), torch.zeros(27, device=dev),
                   torch.zeros(9, 32, 8, device=dev), torch.zeros(8, device=dev))
+    off = torch.zeros(1, 9, 4, 4, device=dev)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):  # K5 has no float16 instantiation
+        deform_conv2d(x.half(), off, off, off, torch.zeros(9, 32, 8, device=dev), torch.zeros(8, device=dev))
+    eye = torch.eye(4, device=dev)
     f = torch.zeros(1, 1, 12, 4, 4, device=dev, dtype=torch.bfloat16)  # C = 12
     with pytest.raises(ValueError, match="C in"):
-        warp_correlate(f, f[:, 0], torch.eye(4, device=dev).expand(1, 1, 4, 4),
-                       torch.eye(4, device=dev).expand(1, 4, 4), torch.ones(1, 2, 4, 4, device=dev))
+        warp_correlate(f, f[:, 0], eye.expand(1, 1, 4, 4), eye.expand(1, 4, 4),
+                       torch.ones(1, 2, 4, 4, device=dev))
+    f = torch.zeros(1, 1, 8, 4, 4, device=dev)  # float32 source, bf16 reference
+    with pytest.raises(TypeError, match="of one dtype"):
+        warp_correlate(f, f[:, 0].to(torch.bfloat16), eye.expand(1, 1, 4, 4), eye.expand(1, 4, 4),
+                       torch.ones(1, 2, 4, 4, device=dev))
 
 
 def assert_close_f32(got, want, name):
@@ -228,3 +239,159 @@ def test_raw_launchers_refuse_inputs_that_need_a_gradient(dev):
     with pytest.raises(RuntimeError, match="no gradient"):
         warp_correlate(f, f[:, 0].detach(), eye.expand(1, 1, 4, 4), eye.expand(1, 4, 4),
                        torch.ones(1, 2, 4, 4, device=dev))
+
+
+def warp_scene(gen, dev, dtype, C, H, W, B=2, S=3, D=5):
+    """Features in ``dtype``, projections whose baselines take samples out
+    of the frame, hypotheses behind the cameras in the first plane."""
+    src = torch.randn(B, S, C, H, W, generator=gen).to(dev, dtype)
+    ref = torch.randn(B, C, H, W, generator=gen).to(dev, dtype)
+    proj = torch.eye(4).repeat(B, S + 1, 1, 1)
+    proj[..., :3, :3] += 0.02 * torch.randn(B, S + 1, 3, 3, generator=gen)
+    proj[..., 0, 0] = proj[..., 1, 1] = 0.8 * W
+    proj[..., 0, 2], proj[..., 1, 2] = W / 2, H / 2
+    proj[..., 0, 3] = 0.3 * W * torch.arange(S + 1)
+    depth = 2.0 + 3.0 * torch.rand(B, D, H, W, generator=gen)
+    depth[:, 0, : H // 2] = -1.0
+    proj, depth = proj.to(dev), depth.to(dev)
+    return src, ref, proj[:, 1:].contiguous(), proj[:, 0].contiguous(), depth
+
+
+def dcn_given_inputs(gen, dev, dtype, C, C_out, H, W, offsets, N=2):
+    x = torch.randn(N, C, H, W, generator=gen).to(dev, dtype)
+    dy = (torch.randn(N, 9, H, W, generator=gen) * offsets).to(dev)
+    dx = (torch.randn(N, 9, H, W, generator=gen) * offsets).to(dev)
+    mask = torch.rand(N, 9, H, W, generator=gen).to(dev)
+    weight = (torch.randn(9, C, C_out, generator=gen) * 0.1).to(dev)
+    bias = (torch.randn(C_out, generator=gen) * 0.1).to(dev)
+    return x, dy, dx, mask, weight, bias
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("C,C_out", [(8, 8), (16, 32), (32, 16), (32, 8)])
+@pytest.mark.parametrize("H,W,offsets", [(7, 13, 4.0), (33, 70, 1.5)])
+def test_dcn_matches_plain(dev, dtype, C, C_out, H, W, offsets):
+    """K5 with given offsets and mask, each instantiation; offsets of 4 px
+    leave a 7x13 image for most taps."""
+    from transmvsnet_tpu_torch.ops.cuda.dcn import deform_conv2d, deform_conv2d_plain
+
+    gen = torch.Generator().manual_seed(C * 100 + C_out + H)
+    args = dcn_given_inputs(gen, dev, dtype, C, C_out, H, W, offsets)
+    attr = "launches_f32" if dtype == torch.float32 else "launches"
+    before = getattr(deform_conv2d, attr)
+    got = deform_conv2d(*args)
+    torch.cuda.synchronize()
+    assert getattr(deform_conv2d, attr) == before + 1
+    assert got.shape == (2, C_out, H, W) and got.dtype == dtype
+    want = deform_conv2d_plain(*args)
+    if dtype == torch.bfloat16:
+        assert_close_bf16(got, want)
+    else:
+        assert_close_f32(got, want, "out")
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("H,W", [(5, 9), (31, 47)])
+def test_warp_correlate_f32_matches_plain(dev, C, H, W):
+    """K6: the float32 instantiation of the warp-correlation forward."""
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import (
+        warp_correlate,
+        warp_correlate_plain,
+    )
+
+    args = warp_scene(torch.Generator().manual_seed(C + H + 3), dev, torch.float32, C, H, W)
+    before = warp_correlate.launches_f32
+    got = warp_correlate(*args)
+    torch.cuda.synchronize()
+    assert warp_correlate.launches_f32 == before + 1
+    want = warp_correlate_plain(*args)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert (want == 0).float().mean() > 0.05
+    # Same float32 arithmetic up to summation order and fused multiply-adds.
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("C,C_out", [(8, 8), (16, 32), (32, 8)])
+@pytest.mark.parametrize("H,W,offsets", [(7, 13, 6.0), (33, 70, 0.0), (33, 70, 1.5)])
+def test_dcn_bwd_f32_matches_plain(dev, C, C_out, H, W, offsets):
+    """K3's float32 instantiation, including zero offsets (two-tap rule)."""
+    from transmvsnet_tpu_torch.ops.cuda.dcn_bwd import dcn_bwd, dcn_bwd_plain
+
+    gen = torch.Generator().manual_seed(C * 10 + C_out + H + 1)
+    x, dy, dx, mask, weight, _ = dcn_given_inputs(gen, dev, torch.float32, C, C_out, H, W, offsets, N=3)
+    g = torch.randn(3, C_out, H, W, generator=gen).to(dev)
+    before = dcn_bwd.launches_f32
+    got = dcn_bwd(x, dy, dx, mask, weight, g)
+    torch.cuda.synchronize()
+    assert dcn_bwd.launches_f32 == before + 1
+    want = dcn_bwd_plain(x, dy, dx, mask, weight, g)
+    for a, b, name in zip(got, want, ("dx", "d_offset_y", "d_offset_x", "d_mask", "d_weight")):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        assert_close_f32(a, b, name)
+    assert got[1].abs().max() > 0 and got[2].abs().max() > 0
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("H,W", [(5, 9), (31, 47)])
+def test_warp_correlate_bwd_f32_matches_plain(dev, C, H, W):
+    """K4's float32 instantiation."""
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import (
+        warp_correlate_bwd,
+        warp_correlate_bwd_plain,
+    )
+
+    gen = torch.Generator().manual_seed(C + H + 11)
+    fwd = warp_scene(gen, dev, torch.float32, C, H, W)
+    g = torch.randn(*fwd[0].shape[:2], fwd[4].shape[1], H, W, generator=gen).to(dev)
+    before = warp_correlate_bwd.launches_f32
+    got = warp_correlate_bwd(*fwd, g)
+    torch.cuda.synchronize()
+    assert warp_correlate_bwd.launches_f32 == before + 1
+    want = warp_correlate_bwd_plain(*fwd, g)
+    for a, b, name in zip(got, want, ("dsrc", "dref")):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        assert_close_f32(a, b, name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dcn_function_matches_plain_autograd(dev, dtype):
+    """dcn_with_vjp (K5 + K3 in x's dtype) against autograd of K5's plain
+    version: gradients to x, the offsets, the mask, the weight and bias."""
+    from transmvsnet_tpu_torch.ops.cuda.dcn import deform_conv2d_plain
+    from transmvsnet_tpu_torch.ops.vjp import dcn_with_vjp
+
+    gen = torch.Generator().manual_seed(9)
+    args = dcn_given_inputs(gen, dev, dtype, 16, 8, 19, 23, 1.5)
+    g = torch.randn(2, 8, 19, 23, generator=gen).to(dev)
+    grads = []
+    for fn in (dcn_with_vjp, deform_conv2d_plain):
+        leaves = [t.clone().requires_grad_() for t in args]
+        (fn(*leaves).float() * g).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for a, b, name in zip(*grads, ("x", "offset_y", "offset_x", "mask", "weight", "bias")):
+        if dtype == torch.bfloat16:
+            # bf16 forward outputs one step apart at most, float32 backward;
+            # the x gradient rounded to bf16.
+            torch.testing.assert_close(a.float(), b.float(), rtol=2e-2, atol=2e-2 * b.abs().max().item(),
+                                       msg=name)
+        else:
+            assert_close_f32(a, b, name)
+
+
+def test_warp_function_f32_matches_plain_autograd(dev):
+    """warp_correlate_with_vjp on float32 features (K6 + K4's float32
+    instantiation) against autograd of the plain forward."""
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate_plain
+    from transmvsnet_tpu_torch.ops.vjp import warp_correlate_with_vjp
+
+    gen = torch.Generator().manual_seed(13)
+    src, ref, sp, rp, depth = warp_scene(gen, dev, torch.float32, 8, 9, 11, B=1, S=2, D=3)
+    g = torch.randn(1, 2, 3, 9, 11, generator=gen).to(dev)
+    grads = []
+    for fn in (warp_correlate_with_vjp, warp_correlate_plain):
+        s, r = src.clone().requires_grad_(), ref.clone().requires_grad_()
+        (fn(s, r, sp, rp, depth) * g).sum().backward()
+        grads.append((s.grad, r.grad))
+    for a, b, name in zip(*grads, ("src", "ref")):
+        assert a.dtype == torch.float32, name
+        assert_close_f32(a, b, name)

@@ -96,10 +96,15 @@ def test_kernel_build_needs_cuda(no_cuda):
 def test_wrappers_refuse_other_devices():
     """Only a CPU tensor takes the plain version; any other device that is
     not CUDA raises rather than falling back."""
+    from transmvsnet_tpu_torch.ops.cuda.dcn import deform_conv2d
     from transmvsnet_tpu_torch.ops.cuda.dcn_fused import dcn_fused
     from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate
 
     m = torch.device("meta")
+    off = torch.empty(1, 9, 4, 4, device=m)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        deform_conv2d(torch.empty(1, 8, 4, 4, device=m), off, off, off, torch.empty(9, 8, 8, device=m),
+                      torch.empty(8, device=m))
     with pytest.raises(ValueError, match="cuda or cpu"):
         dcn_fused(torch.empty(1, 8, 4, 4, device=m), torch.empty(27, 8, 3, 3, device=m),
                   torch.empty(27, device=m), torch.empty(9, 8, 8, device=m),

@@ -123,6 +123,8 @@ class TestKernelChecks:
             assert k2._check(*self.args(C)) == (1, 2, C, 6, 12, 16)
 
     def test_refuses_float32_features(self):
+        # A float32 source beside a bf16 reference: the kernel has a
+        # float32 and a bf16 instantiation, one dtype for both.
         a = self.args()
         a[0] = a[0].float()
         with pytest.raises(TypeError, match="bfloat16"):

@@ -1,7 +1,11 @@
-// DCNv2 backward: gradients of the deformable 3x3 conv for given offsets/mask.
+// DCNv2 backward: gradients of the deformable 3x3 conv for given offsets/mask,
+// float32 or bf16 activations (gradients float32 either way).
 //
 // Replaces transmvsnet_tpu/ops/pallas/dcn_bwd.py::deform_conv2d_bwd (the TPU
-// kernel _bwd_kernel). Same function: for the forward
+// kernel _bwd_kernel; bf16 there). Its float32 instantiation serves the
+// float32 path, where the JAX package differentiates dcn_rowsweep.py by
+// autodiff of the floor-based XLA sampler (ops/pallas/vjp.py,
+// pallas_bwd=None): the same gradient. Same function: for the forward
 //   out[o, p] = sum_k sum_c m_k(p) * samp_kc(p) * w[k, c, o]
 //   samp_kc(p) = bilinear(x[c], y + k/3 - 1 + dy_k(p), x + k%3 - 1 + dx_k(p))
 // (zeros padding per corner) and the cotangent g[o, p], with
@@ -47,6 +51,9 @@ constexpr int kTile = 32;           // pixels per tile of the dw kernel
 constexpr int kStride = kTile + 1;  // padded tile row: no bank conflicts
 constexpr int kDwBlocks = 528;      // 4 blocks per SM on 132 SMs
 
+__device__ __forceinline__ float load(const float* p) { return *p; }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
 // One bilinear sample: corner validity, fractional weights, clamped indices.
 struct Sample {
   bool v00, v01, v10, v11;
@@ -79,9 +86,9 @@ __device__ __forceinline__ Sample sample_at(float py, float px, int H, int W) {
   return s;
 }
 
-template <int C, int COUT>
+template <typename T, int C, int COUT>
 __global__ void __launch_bounds__(kThreads) dcn_bwd_kernel(
-    const __nv_bfloat16* __restrict__ x,  // [N, C, H, W]
+    const T* __restrict__ x,              // [N, C, H, W]
     const float* __restrict__ dy,         // [N, 9, H, W]
     const float* __restrict__ dx,         // [N, 9, H, W]
     const float* __restrict__ mask,       // [N, 9, H, W]
@@ -109,7 +116,7 @@ __global__ void __launch_bounds__(kThreads) dcn_bwd_kernel(
 #pragma unroll
   for (int o = 0; o < COUT; ++o) gv[o] = gb[o * HW];
 
-  const __nv_bfloat16* xb = x + (long long)n * C * HW;
+  const T* xb = x + (long long)n * C * HW;
   float* dxb = dx_s + (long long)n * C * HW;
   const long long kofs = (long long)n * kTaps * HW + pix;
   for (int k = 0; k < kTaps; ++k) {
@@ -130,11 +137,11 @@ __global__ void __launch_bounds__(kThreads) dcn_bwd_kernel(
         float q = 0.f;
 #pragma unroll
         for (int o = 0; o < COUT; ++o) q = fmaf(wr[c * COUT + o], gv[o], q);
-        const __nv_bfloat16* xc = xb + c * HW;
-        const float v00 = s.v00 ? __bfloat162float(xc[s.i00]) : 0.f;
-        const float v01 = s.v01 ? __bfloat162float(xc[s.i01]) : 0.f;
-        const float v10 = s.v10 ? __bfloat162float(xc[s.i10]) : 0.f;
-        const float v11 = s.v11 ? __bfloat162float(xc[s.i11]) : 0.f;
+        const T* xc = xb + c * HW;
+        const float v00 = s.v00 ? load(xc + s.i00) : 0.f;
+        const float v01 = s.v01 ? load(xc + s.i01) : 0.f;
+        const float v10 = s.v10 ? load(xc + s.i10) : 0.f;
+        const float v11 = s.v11 ? load(xc + s.i11) : 0.f;
         acc_m = fmaf(q, w00 * v00 + w01 * v01 + w10 * v10 + w11 * v11, acc_m);
         acc_y = fmaf(q, (1.f - s.wx) * (v10 - v00) + s.wx * (v11 - v01), acc_y);
         acc_x = fmaf(q, (1.f - s.wy) * (v01 - v00) + s.wy * (v11 - v10), acc_x);
@@ -157,9 +164,9 @@ constexpr size_t dw_smem_bytes() {
   return sizeof(float) * (kTaps * C + COUT) * kStride;
 }
 
-template <int C, int COUT>
+template <typename T, int C, int COUT>
 __global__ void __launch_bounds__(kThreads) dcn_bwd_dw_kernel(
-    const __nv_bfloat16* __restrict__ x,  // [N, C, H, W]
+    const T* __restrict__ x,              // [N, C, H, W]
     const float* __restrict__ dy,         // [N, 9, H, W]
     const float* __restrict__ dx,         // [N, 9, H, W]
     const float* __restrict__ mask,       // [N, 9, H, W]
@@ -213,12 +220,11 @@ __global__ void __launch_bounds__(kThreads) dcn_bwd_dw_kernel(
       const float a01 = s.v01 ? s.wx * (1.f - s.wy) * m : 0.f;
       const float a10 = s.v10 ? (1.f - s.wx) * s.wy * m : 0.f;
       const float a11 = s.v11 ? s.wx * s.wy * m : 0.f;
-      const __nv_bfloat16* xb = x + (long long)n * C * HW;
+      const T* xb = x + (long long)n * C * HW;
       for (int c = 0; c < C; ++c) {
-        const __nv_bfloat16* xc = xb + c * HW;
-        s_cols[(k * C + c) * kStride + j] =
-            a00 * __bfloat162float(xc[s.i00]) + a01 * __bfloat162float(xc[s.i01]) +
-            a10 * __bfloat162float(xc[s.i10]) + a11 * __bfloat162float(xc[s.i11]);
+        const T* xc = xb + c * HW;
+        s_cols[(k * C + c) * kStride + j] = a00 * load(xc + s.i00) + a01 * load(xc + s.i01) +
+                                            a10 * load(xc + s.i10) + a11 * load(xc + s.i11);
       }
     }
     __syncthreads();
@@ -245,66 +251,75 @@ __global__ void __launch_bounds__(kThreads) dcn_bwd_dw_kernel(
   }
 }
 
-template <int C, int COUT>
+template <typename T, int C, int COUT>
 cudaError_t launch(const void* x, const void* dy, const void* dx, const void* mask,
                    const void* w, const void* g, void* dx_s, void* ddy, void* ddx, void* dm,
                    void* dw, int N, int H, int W, cudaStream_t stream) {
   const size_t smem = sizeof(float) * kTaps * C * COUT;
   cudaError_t err = cudaFuncSetAttribute(
-      dcn_bwd_kernel<C, COUT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      dcn_bwd_kernel<T, C, COUT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const size_t smem_dw = dw_smem_bytes<C, COUT>();
-  err = cudaFuncSetAttribute(dcn_bwd_dw_kernel<C, COUT>,
+  err = cudaFuncSetAttribute(dcn_bwd_dw_kernel<T, C, COUT>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_dw);
   if (err != cudaSuccess) return err;
   const long long n = (long long)N * H * W;
-  const auto* xp = static_cast<const __nv_bfloat16*>(x);
+  const auto* xp = static_cast<const T*>(x);
   const auto* dyp = static_cast<const float*>(dy);
   const auto* dxp = static_cast<const float*>(dx);
   const auto* mp = static_cast<const float*>(mask);
   const auto* gp = static_cast<const float*>(g);
-  dcn_bwd_kernel<C, COUT><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, smem, stream>>>(
+  dcn_bwd_kernel<T, C, COUT><<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, smem, stream>>>(
       xp, dyp, dxp, mp, static_cast<const float*>(w), gp, static_cast<float*>(dx_s),
       static_cast<float*>(ddy), static_cast<float*>(ddx), static_cast<float*>(dm), N, H, W);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long tiles = (n + kTile - 1) / kTile;
   const unsigned blocks = (unsigned)(tiles < kDwBlocks ? tiles : kDwBlocks);
-  dcn_bwd_dw_kernel<C, COUT><<<blocks, kThreads, smem_dw, stream>>>(
+  dcn_bwd_dw_kernel<T, C, COUT><<<blocks, kThreads, smem_dw, stream>>>(
       xp, dyp, dxp, mp, gp, static_cast<float*>(dw), N, H, W);
   return cudaGetLastError();
 }
 
-template <int C>
+template <typename T, int C>
 cudaError_t dispatch_cout(int cout, const void* x, const void* dy, const void* dx,
                           const void* mask, const void* w, const void* g, void* dx_s, void* ddy,
                           void* ddx, void* dm, void* dw, int N, int H, int W, cudaStream_t s) {
   switch (cout) {
-    case 8: return launch<C, 8>(x, dy, dx, mask, w, g, dx_s, ddy, ddx, dm, dw, N, H, W, s);
-    case 16: return launch<C, 16>(x, dy, dx, mask, w, g, dx_s, ddy, ddx, dm, dw, N, H, W, s);
-    case 32: return launch<C, 32>(x, dy, dx, mask, w, g, dx_s, ddy, ddx, dm, dw, N, H, W, s);
+    case 8: return launch<T, C, 8>(x, dy, dx, mask, w, g, dx_s, ddy, ddx, dm, dw, N, H, W, s);
+    case 16: return launch<T, C, 16>(x, dy, dx, mask, w, g, dx_s, ddy, ddx, dm, dw, N, H, W, s);
+    case 32: return launch<T, C, 32>(x, dy, dx, mask, w, g, dx_s, ddy, ddx, dm, dw, N, H, W, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t dispatch(int C, int cout, const void* x, const void* dy, const void* dx,
+                     const void* mask, const void* w, const void* g, void* dx_s, void* ddy,
+                     void* ddx, void* dm, void* dw, int N, int H, int W, cudaStream_t s) {
+  switch (C) {
+    case 8:
+      return dispatch_cout<T, 8>(cout, x, dy, dx, mask, w, g, dx_s, ddy, ddx, dm, dw, N, H, W, s);
+    case 16:
+      return dispatch_cout<T, 16>(cout, x, dy, dx, mask, w, g, dx_s, ddy, ddx, dm, dw, N, H, W, s);
+    case 32:
+      return dispatch_cout<T, 32>(cout, x, dy, dx, mask, w, g, dx_s, ddy, ddx, dm, dw, N, H, W, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Returns a cudaError_t code: 0 on success, else the first launch error.
+// x is bf16 when bf16 != 0, else float32. Returns a cudaError_t code: 0 on
+// success, else the first launch error.
 extern "C" int dcn_bwd(const void* x, const void* dy, const void* dx, const void* mask,
                        const void* w, const void* g, void* dx_s, void* ddy, void* ddx, void* dm,
-                       void* dw, int N, int C, int COUT, int H, int W, void* stream) {
+                       void* dw, int N, int C, int COUT, int H, int W, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 8:
-      return (int)dispatch_cout<8>(COUT, x, dy, dx, mask, w, g, dx_s, ddy, ddx, dm, dw, N, H, W, s);
-    case 16:
-      return (int)dispatch_cout<16>(COUT, x, dy, dx, mask, w, g, dx_s, ddy, ddx, dm, dw, N, H, W,
-                                    s);
-    case 32:
-      return (int)dispatch_cout<32>(COUT, x, dy, dx, mask, w, g, dx_s, ddy, ddx, dm, dw, N, H, W,
-                                    s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (bf16)
+    return (int)dispatch<__nv_bfloat16>(C, COUT, x, dy, dx, mask, w, g, dx_s, ddy, ddx, dm, dw, N,
+                                        H, W, s);
+  return (int)dispatch<float>(C, COUT, x, dy, dx, mask, w, g, dx_s, ddy, ddx, dm, dw, N, H, W, s);
 }
 
 extern "C" const char* dcn_bwd_error_string(int code) {

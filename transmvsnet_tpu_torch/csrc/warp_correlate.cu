@@ -1,8 +1,14 @@
-// Plane-sweep warp-correlation forward: bf16 features in, float32 similarity out.
+// Plane-sweep warp-correlation forward: float32 or bf16 features in,
+// float32 similarity out.
 //
-// Replaces transmvsnet_tpu/ops/pallas/warp_onehot.py::warp_correlate_onehot
-// (the TPU kernel _kernel / _correlate_strip). Same function: for source view
-// n = b*S + s, hypothesis d and reference pixel (y, x),
+// Replaces two TPU kernels that compute one function and differ only in
+// the feature type:
+//   transmvsnet_tpu/ops/pallas/warp_onehot.py::warp_correlate_onehot (bf16
+//     features; the bf16 instantiation, K2), and
+//   transmvsnet_tpu/ops/pallas/warp_rowsweep.py::warp_correlate_rowsweep
+//     (float32 features; the float instantiation, K6).
+// Same function: for source view n = b*S + s, hypothesis d and reference
+// pixel (y, x),
 //   [X Y Z] = rel[n] @ [x*z, y*z, z, 1],  z = depth[b, d, y, x]
 //   invalid if Z < 1e-6 (sampled as zero), else (px, py) = (X/Z, Y/Z)
 //   out[n, d, y, x] = mean_c bilinear(src[n, c], px, py) * ref[b, c, y, x]
@@ -12,9 +18,10 @@
 // What bounds it on an H100: per (view, hypothesis, pixel) it does ~10*C
 // flops and moves 8 bytes of unique traffic (a depth read shared by the S
 // views, one float32 write), so by the roofline it is bound by bytes. In
-// practice the 4*C scattered 2-byte gathers per output dominate: they are
-// served by L1/L2 (a source plane of a stage fits in the 50 MB L2), so the
-// real limit is load-instruction issue and gather latency.
+// practice the 4*C scattered gathers per output (2 bytes each in bf16, 4 in
+// float32) dominate: they are served by L1/L2 (a source plane of a stage
+// fits in the 50 MB L2), so the real limit is load-instruction issue and
+// gather latency.
 //
 // Design: one thread per (view, pixel). It keeps its C reference values and
 // the 12 projection entries in registers and loops over the D hypotheses,
@@ -32,13 +39,16 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int C>
+__device__ __forceinline__ float load(const float* p) { return *p; }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+template <typename T, int C>
 __global__ void __launch_bounds__(kThreads) warp_correlate_kernel(
-    const __nv_bfloat16* __restrict__ src,  // [B*S, C, H, W]
-    const __nv_bfloat16* __restrict__ ref,  // [B, C, H, W]
-    const float* __restrict__ rel,          // [B*S, 3, 4]
-    const float* __restrict__ depth,        // [B, D, H, W]
-    float* __restrict__ out,                // [B*S, D, H, W]
+    const T* __restrict__ src,          // [B*S, C, H, W]
+    const T* __restrict__ ref,          // [B, C, H, W]
+    const float* __restrict__ rel,      // [B*S, 3, 4]
+    const float* __restrict__ depth,    // [B, D, H, W]
+    float* __restrict__ out,            // [B*S, D, H, W]
     int N, int S, int D, int H, int W) {
   const long long HW = (long long)H * W;
   const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -58,11 +68,11 @@ __global__ void __launch_bounds__(kThreads) warp_correlate_kernel(
   const float bz = r[8] * fx + r[9] * fy + r[10];
 
   float refv[C];
-  const __nv_bfloat16* rb = ref + (long long)b * C * HW + pix;
+  const T* rb = ref + (long long)b * C * HW + pix;
 #pragma unroll
-  for (int c = 0; c < C; ++c) refv[c] = __bfloat162float(rb[c * HW]);
+  for (int c = 0; c < C; ++c) refv[c] = load(rb + c * HW);
 
-  const __nv_bfloat16* sb = src + (long long)n * C * HW;
+  const T* sb = src + (long long)n * C * HW;
   const float* db = depth + (long long)b * D * HW + pix;
   float* ob = out + (long long)n * D * HW + pix;
   for (int d = 0; d < D; ++d) {
@@ -91,9 +101,9 @@ __global__ void __launch_bounds__(kThreads) warp_correlate_kernel(
         const long long i10 = (long long)cy1 * W + cx0, i11 = (long long)cy1 * W + cx1;
 #pragma unroll
         for (int c = 0; c < C; ++c) {
-          const __nv_bfloat16* sc = sb + c * HW;
-          const float v = w00 * __bfloat162float(sc[i00]) + w01 * __bfloat162float(sc[i01]) +
-                          w10 * __bfloat162float(sc[i10]) + w11 * __bfloat162float(sc[i11]);
+          const T* sc = sb + c * HW;
+          const float v = w00 * load(sc + i00) + w01 * load(sc + i01) + w10 * load(sc + i10) +
+                          w11 * load(sc + i11);
           acc = fmaf(v, refv[c], acc);
         }
       }
@@ -102,31 +112,38 @@ __global__ void __launch_bounds__(kThreads) warp_correlate_kernel(
   }
 }
 
-template <int C>
+template <typename T, int C>
 cudaError_t launch(const void* src, const void* ref, const void* rel, const void* depth,
                    void* out, int N, int S, int D, int H, int W, cudaStream_t stream) {
   const long long n = (long long)N * H * W;
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  warp_correlate_kernel<C><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(src), static_cast<const __nv_bfloat16*>(ref),
-      static_cast<const float*>(rel), static_cast<const float*>(depth),
-      static_cast<float*>(out), N, S, D, H, W);
+  warp_correlate_kernel<T, C><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(src), static_cast<const T*>(ref), static_cast<const float*>(rel),
+      static_cast<const float*>(depth), static_cast<float*>(out), N, S, D, H, W);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(int C, const void* src, const void* ref, const void* rel, const void* depth,
+                     void* out, int N, int S, int D, int H, int W, cudaStream_t s) {
+  switch (C) {
+    case 8: return launch<T, 8>(src, ref, rel, depth, out, N, S, D, H, W, s);
+    case 16: return launch<T, 16>(src, ref, rel, depth, out, N, S, D, H, W, s);
+    case 32: return launch<T, 32>(src, ref, rel, depth, out, N, S, D, H, W, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// Returns a cudaError_t code: 0 on success, else the launch's error.
+// src and ref are bf16 when bf16 != 0, else float32. Returns a cudaError_t
+// code: 0 on success, else the launch's error.
 extern "C" int warp_correlate_forward(const void* src, const void* ref, const void* rel,
                                       const void* depth, void* out, int N, int S, int C,
-                                      int D, int H, int W, void* stream) {
+                                      int D, int H, int W, int bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 8: return (int)launch<8>(src, ref, rel, depth, out, N, S, D, H, W, s);
-    case 16: return (int)launch<16>(src, ref, rel, depth, out, N, S, D, H, W, s);
-    case 32: return (int)launch<32>(src, ref, rel, depth, out, N, S, D, H, W, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (bf16) return (int)dispatch<__nv_bfloat16>(C, src, ref, rel, depth, out, N, S, D, H, W, s);
+  return (int)dispatch<float>(C, src, ref, rel, depth, out, N, S, D, H, W, s);
 }
 
 extern "C" const char* warp_correlate_error_string(int code) {

@@ -1,9 +1,12 @@
 // Plane-sweep warp-correlation backward: gradients of the source and
-// reference features, float32.
+// reference features, float32, from float32 or bf16 features.
 //
 // Replaces transmvsnet_tpu/ops/pallas/warp_bwd.py::warp_correlate_bwd (the
-// S = 1, unit-view-weight case of the TPU kernel _bwd_kernel). For the
-// forward of warp_correlate.cu,
+// S = 1, unit-view-weight case of the TPU kernel _bwd_kernel; bf16 there).
+// Its float32 instantiation serves the float32 path, where the JAX package
+// differentiates warp_rowsweep.py by autodiff of the XLA warp
+// (ops/pallas/vjp.py, pallas_bwd=None): the same gradient. For the forward
+// of warp_correlate.cu,
 //   out[n, d, p] = mean_c bilinear(src[n, c], px, py) * ref[b, c, p]
 // with (px, py) the projection of ref pixel p at depth[b, d, p] into source
 // view n = b*S + s (invalid, contributing nothing, where its z < 1e-6), and
@@ -15,7 +18,7 @@
 // built without one in the reference.
 //
 // What bounds it on an H100: per (view, hypothesis, pixel) it gathers 4*C
-// bf16 values and scatters 4*C float32 atomics into dsrc; its unique traffic
+// feature values and scatters 4*C float32 atomics into dsrc; its unique traffic
 // is one depth and one cotangent read, so by the roofline it is bound by
 // bytes, in practice by the atomics and the gathers.
 //
@@ -37,10 +40,13 @@ namespace {
 
 constexpr int kThreads = 256;
 
-template <int C>
+__device__ __forceinline__ float load(const float* p) { return *p; }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
+
+template <typename T, int C>
 __global__ void __launch_bounds__(kThreads) warp_correlate_bwd_kernel(
-    const __nv_bfloat16* __restrict__ src,  // [B*S, C, H, W]
-    const __nv_bfloat16* __restrict__ ref,  // [B, C, H, W]
+    const T* __restrict__ src,              // [B*S, C, H, W]
+    const T* __restrict__ ref,              // [B, C, H, W]
     const float* __restrict__ rel,          // [B*S, 3, 4]
     const float* __restrict__ depth,        // [B, D, H, W]
     const float* __restrict__ g,            // [B*S, D, H, W]
@@ -65,14 +71,14 @@ __global__ void __launch_bounds__(kThreads) warp_correlate_bwd_kernel(
   const float bz = r[8] * fx + r[9] * fy + r[10];
 
   float refv[C], dr[C];
-  const __nv_bfloat16* rb = ref + (long long)b * C * HW + pix;
+  const T* rb = ref + (long long)b * C * HW + pix;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    refv[c] = __bfloat162float(rb[c * HW]);
+    refv[c] = load(rb + c * HW);
     dr[c] = 0.f;
   }
 
-  const __nv_bfloat16* sb = src + (long long)n * C * HW;
+  const T* sb = src + (long long)n * C * HW;
   float* db = dsrc + (long long)n * C * HW;
   const float* zb = depth + (long long)b * D * HW + pix;
   const float* gb = g + (long long)n * D * HW + pix;
@@ -103,9 +109,9 @@ __global__ void __launch_bounds__(kThreads) warp_correlate_bwd_kernel(
     const long long i10 = (long long)cy1 * W + cx0, i11 = (long long)cy1 * W + cx1;
 #pragma unroll
     for (int c = 0; c < C; ++c) {
-      const __nv_bfloat16* sc = sb + c * HW;
-      const float v = w00 * __bfloat162float(sc[i00]) + w01 * __bfloat162float(sc[i01]) +
-                      w10 * __bfloat162float(sc[i10]) + w11 * __bfloat162float(sc[i11]);
+      const T* sc = sb + c * HW;
+      const float v = w00 * load(sc + i00) + w01 * load(sc + i01) + w10 * load(sc + i10) +
+                      w11 * load(sc + i11);
       dr[c] = fmaf(v, gd, dr[c]);
       const float s = refv[c] * gd;
       float* dc = db + c * HW;
@@ -120,33 +126,44 @@ __global__ void __launch_bounds__(kThreads) warp_correlate_bwd_kernel(
   for (int c = 0; c < C; ++c) atomicAdd(drb + c * HW, dr[c]);
 }
 
-template <int C>
+template <typename T, int C>
 cudaError_t launch(const void* src, const void* ref, const void* rel, const void* depth,
                    const void* g, void* dsrc, void* dref, int N, int S, int D, int H, int W,
                    cudaStream_t stream) {
   const long long n = (long long)N * H * W;
   const unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
-  warp_correlate_bwd_kernel<C><<<blocks, kThreads, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(src), static_cast<const __nv_bfloat16*>(ref),
+  warp_correlate_bwd_kernel<T, C><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(src), static_cast<const T*>(ref),
       static_cast<const float*>(rel), static_cast<const float*>(depth),
       static_cast<const float*>(g), static_cast<float*>(dsrc), static_cast<float*>(dref), N, S,
       D, H, W);
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t dispatch(int C, const void* src, const void* ref, const void* rel, const void* depth,
+                     const void* g, void* dsrc, void* dref, int N, int S, int D, int H, int W,
+                     cudaStream_t s) {
+  switch (C) {
+    case 8: return launch<T, 8>(src, ref, rel, depth, g, dsrc, dref, N, S, D, H, W, s);
+    case 16: return launch<T, 16>(src, ref, rel, depth, g, dsrc, dref, N, S, D, H, W, s);
+    case 32: return launch<T, 32>(src, ref, rel, depth, g, dsrc, dref, N, S, D, H, W, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// Returns a cudaError_t code: 0 on success, else the launch's error.
+// src and ref are bf16 when bf16 != 0, else float32. Returns a cudaError_t
+// code: 0 on success, else the launch's error.
 extern "C" int warp_correlate_bwd(const void* src, const void* ref, const void* rel,
                                   const void* depth, const void* g, void* dsrc, void* dref,
-                                  int N, int S, int C, int D, int H, int W, void* stream) {
+                                  int N, int S, int C, int D, int H, int W, int bf16,
+                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (C) {
-    case 8: return (int)launch<8>(src, ref, rel, depth, g, dsrc, dref, N, S, D, H, W, s);
-    case 16: return (int)launch<16>(src, ref, rel, depth, g, dsrc, dref, N, S, D, H, W, s);
-    case 32: return (int)launch<32>(src, ref, rel, depth, g, dsrc, dref, N, S, D, H, W, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  if (bf16)
+    return (int)dispatch<__nv_bfloat16>(C, src, ref, rel, depth, g, dsrc, dref, N, S, D, H, W, s);
+  return (int)dispatch<float>(C, src, ref, rel, depth, g, dsrc, dref, N, S, D, H, W, s);
 }
 
 extern "C" const char* warp_correlate_bwd_error_string(int code) {

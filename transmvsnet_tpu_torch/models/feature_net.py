@@ -17,16 +17,21 @@ from torch.utils.checkpoint import checkpoint
 
 from transmvsnet_tpu_torch.models.blocks import BatchNorm, Conv2d, ConvBnReLU
 from transmvsnet_tpu_torch.ops.cuda.dcn_fused import dcn_fused_plain
+from transmvsnet_tpu_torch.ops.dcn import split_offsets
 from transmvsnet_tpu_torch.ops.sampling import upsample_nearest_2x
-from transmvsnet_tpu_torch.ops.vjp import dcn_fused_with_vjp
+from transmvsnet_tpu_torch.ops.vjp import dcn_fused_with_vjp, dcn_with_vjp
 
 
 class DCN(nn.Module):
     """Modulated deformable 3x3 conv with its learned offset/mask conv.
 
     ``weight`` keeps the reference layout [C_out, C_in, 3, 3]; the op takes
-    it tap-major. It runs K1 forward and K3 backward on CUDA (each
-    kernel's plain version on the CPU); ``plain`` forces the plain PyTorch
+    it tap-major. The activation dtype picks the route, as in the JAX
+    package (``feature_net.py``): bf16 runs the conv-fused K1 forward with
+    K3 backward; any other dtype runs ``conv_offset_mask`` as a module,
+    splits its output (interleaved dy/dx, sigmoid mask) and runs K5
+    forward with K3 backward in that dtype. The device then picks kernel
+    (CUDA) or plain version (CPU). ``plain`` forces the plain PyTorch
     forward on any device, differentiated by autograd (for holding the
     kernel path against it on the card).
     """
@@ -53,9 +58,12 @@ class DCN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w_taps = self.weight.permute(2, 3, 1, 0).reshape(9, self.weight.shape[1], -1)
         # cuDNN may hand back a channels-last result; the kernel reads NCHW.
-        args = (x.contiguous(), self.conv_offset_mask.weight, self.conv_offset_mask.bias, w_taps, self.bias)
+        x = x.contiguous()
+        args = (x, self.conv_offset_mask.weight, self.conv_offset_mask.bias, w_taps, self.bias)
         if not self.plain:
-            return dcn_fused_with_vjp(*args)
+            if x.dtype == torch.bfloat16:
+                return dcn_fused_with_vjp(*args)
+            return dcn_with_vjp(x, *split_offsets(self.conv_offset_mask(x)), w_taps, self.bias)
         if torch.is_grad_enabled():
             # The plain sampler keeps ~2.5 GB per tap for autograd at a
             # 10x32x512x640 head; recompute it in the backward instead.

@@ -98,3 +98,11 @@ def check(lib: ctypes.CDLL, name: str, code: int) -> None:
 
 def stream_handle(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def count_launch(wrapper, dtype: torch.dtype) -> None:
+    """Count one launch of a kernel templated on the activation type:
+    ``wrapper.launches`` counts its bf16 instantiation,
+    ``wrapper.launches_f32`` its float32 one."""
+    attr = "launches_f32" if dtype == torch.float32 else "launches"
+    setattr(wrapper, attr, getattr(wrapper, attr) + 1)

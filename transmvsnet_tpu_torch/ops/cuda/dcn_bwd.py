@@ -1,9 +1,12 @@
 """DCNv2 backward: CUDA kernel ``csrc/dcn_bwd.cu`` and its plain version.
 
 Replaces the TPU kernel ``transmvsnet_tpu/ops/pallas/dcn_bwd.py::
-deform_conv2d_bwd``. ``dcn_bwd`` launches the kernel for a CUDA tensor and
-takes ``dcn_bwd_plain`` only for a CPU tensor; anything the kernel does not
-take raises. ``dcn_bwd.launches`` counts kernel launches.
+deform_conv2d_bwd`` (bf16 activations, the kernel's bf16 instantiation);
+its float32 instantiation is the float32 path's backward, where the JAX
+package differentiates the XLA sampler. ``dcn_bwd`` launches the kernel
+for a CUDA tensor and takes ``dcn_bwd_plain`` only for a CPU tensor;
+anything the kernel does not take raises. ``dcn_bwd.launches`` counts the
+bf16 instantiation's launches, ``dcn_bwd.launches_f32`` the float32 one's.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from transmvsnet_tpu_torch.ops.cuda import build
 from transmvsnet_tpu_torch.ops.dcn import deform_conv2d
 
 SUPPORTED_CHANNELS = (8, 16, 32)
+SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def dcn_bwd_plain(
@@ -38,8 +42,8 @@ def dcn_bwd_plain(
 
 
 def _check(x, offset_y, offset_x, mask, weight, g) -> tuple[int, int, int, int, int]:
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"dcn_bwd kernel takes bfloat16 activations, got {x.dtype}")
+    if x.dtype not in SUPPORTED_DTYPES:
+        raise TypeError(f"dcn_bwd kernel takes float32 or bfloat16 activations, got {x.dtype}")
     if x.ndim != 4:
         raise ValueError(f"dcn_bwd needs x [N, C, H, W], got {tuple(x.shape)}")
     N, C, H, W = x.shape
@@ -71,8 +75,8 @@ def dcn_bwd(
 ) -> tuple[torch.Tensor, ...]:
     """Gradients (dx, d_offset_y, d_offset_x, d_mask, d_weight) of the
     deformable 3x3 conv (stride 1, pad 1), all float32. Arguments as
-    ``dcn_bwd_plain``; on CUDA, x must be bfloat16. The bias gradient is a
-    plain sum of g, left to the caller."""
+    ``dcn_bwd_plain``; on CUDA, x must be float32 or bfloat16. The bias
+    gradient is a plain sum of g, left to the caller."""
     if x.device.type == "cpu":
         return dcn_bwd_plain(x, offset_y, offset_x, mask, weight, g)
     if x.device.type != "cuda":
@@ -87,15 +91,16 @@ def dcn_bwd(
     lib = build.library("dcn_bwd")
     fn = lib.dcn_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     code = fn(
         x.data_ptr(), dy.data_ptr(), dxo.data_ptr(), m.data_ptr(), w.data_ptr(), gf.data_ptr(),
         dx_s.data_ptr(), ddy.data_ptr(), ddx.data_ptr(), dm.data_ptr(), dw.data_ptr(),
-        N, C, C_out, H, W, build.stream_handle(x),
+        N, C, C_out, H, W, int(x.dtype == torch.bfloat16), build.stream_handle(x),
     )
     build.check(lib, "dcn_bwd", code)
-    dcn_bwd.launches += 1
+    build.count_launch(dcn_bwd, x.dtype)
     return dx_s, ddy, ddx, dm, dw.reshape(9, C, C_out)
 
 
 dcn_bwd.launches = 0
+dcn_bwd.launches_f32 = 0

@@ -1,11 +1,14 @@
 """Warp-correlation forward: CUDA kernel ``csrc/warp_correlate.cu`` and its
 plain version.
 
-Replaces the TPU kernel ``transmvsnet_tpu/ops/pallas/warp_onehot.py::
-warp_correlate_onehot``. All S source views of a batch go through one
+Replaces the TPU kernels ``transmvsnet_tpu/ops/pallas/warp_onehot.py::
+warp_correlate_onehot`` (bf16 features: the kernel's bf16 instantiation,
+K2) and ``warp_rowsweep.py::warp_correlate_rowsweep`` (float32 features:
+its float instantiation, K6). All S source views of a batch go through one
 launch. ``warp_correlate`` launches the kernel for a CUDA tensor and takes
 ``warp_correlate_plain`` only for a CPU tensor; anything the kernel does
-not take raises. ``warp_correlate.launches`` counts kernel launches.
+not take raises. ``warp_correlate.launches`` counts K2's launches,
+``warp_correlate.launches_f32`` K6's.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from transmvsnet_tpu_torch.ops.cuda import build
 from transmvsnet_tpu_torch.ops.geometry import relative_projection
 
 SUPPORTED_CHANNELS = (8, 16, 32)
+SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _flat_views(src, ref, src_proj, ref_proj, depth):
@@ -52,9 +56,13 @@ def warp_correlate_plain(
 
 
 def _check(src, ref, src_proj, ref_proj, depth) -> tuple[int, int, int, int, int, int]:
-    """What the forward and backward kernels take; returns (B, S, C, D, H, W)."""
-    if src.dtype != torch.bfloat16 or ref.dtype != torch.bfloat16:
-        raise TypeError(f"warp_correlate kernel takes bfloat16 features, got {src.dtype}, {ref.dtype}")
+    """What the forward and backward kernels take (each has a float32 and a
+    bf16 instantiation); returns (B, S, C, D, H, W)."""
+    if src.dtype not in SUPPORTED_DTYPES or ref.dtype != src.dtype:
+        raise TypeError(
+            "warp_correlate kernel takes float32 or bfloat16 features of one dtype, "
+            f"got {src.dtype}, {ref.dtype}"
+        )
     if depth.dtype != torch.float32:
         raise TypeError(f"warp_correlate kernel takes float32 depth, got {depth.dtype}")
     if src.ndim != 5 or ref.ndim != 4 or depth.ndim != 4:
@@ -94,10 +102,10 @@ def warp_correlate(
     depth: torch.Tensor,
 ) -> torch.Tensor:
     """Arguments as ``warp_correlate_plain``; on CUDA, src and ref must be
-    bfloat16 and depth float32. Returns [B, S, D, H, W] float32. The CUDA
-    result has no gradient, so with grad mode on, features that require
-    one raise; ``ops.vjp.warp_correlate_with_vjp`` is the differentiable
-    call."""
+    both float32 or both bfloat16, and depth float32. Returns
+    [B, S, D, H, W] float32. The CUDA result has no gradient, so with grad
+    mode on, features that require one raise;
+    ``ops.vjp.warp_correlate_with_vjp`` is the differentiable call."""
     if src.device.type == "cpu":
         return warp_correlate_plain(src, ref, src_proj, ref_proj, depth)
     if src.device.type != "cuda":
@@ -113,14 +121,15 @@ def warp_correlate(
     lib = build.library("warp_correlate")
     fn = lib.warp_correlate_forward
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     code = fn(
         src.data_ptr(), ref.data_ptr(), rel.data_ptr(), depth.data_ptr(), out.data_ptr(),
-        B * S, S, C, D, H, W, build.stream_handle(src),
+        B * S, S, C, D, H, W, int(src.dtype == torch.bfloat16), build.stream_handle(src),
     )
     build.check(lib, "warp_correlate", code)
-    warp_correlate.launches += 1
+    build.count_launch(warp_correlate, src.dtype)
     return out
 
 
 warp_correlate.launches = 0
+warp_correlate.launches_f32 = 0

@@ -2,11 +2,14 @@
 its plain version.
 
 Replaces the TPU kernel ``transmvsnet_tpu/ops/pallas/warp_bwd.py::
-warp_correlate_bwd``. All S source views of a batch go through one
-launch. ``warp_correlate_bwd`` launches the kernel for a CUDA tensor and
-takes ``warp_correlate_bwd_plain`` only for a CPU tensor; anything the
-kernel does not take raises. ``warp_correlate_bwd.launches`` counts kernel
-launches.
+warp_correlate_bwd`` (bf16 features, the kernel's bf16 instantiation); its
+float32 instantiation is the float32 path's backward, where the JAX
+package differentiates the XLA warp. All S source views of a batch go
+through one launch. ``warp_correlate_bwd`` launches the kernel for a CUDA
+tensor and takes ``warp_correlate_bwd_plain`` only for a CPU tensor;
+anything the kernel does not take raises. ``warp_correlate_bwd.launches``
+counts the bf16 instantiation's launches, ``warp_correlate_bwd.launches_f32``
+the float32 one's.
 """
 
 from __future__ import annotations
@@ -52,8 +55,8 @@ def warp_correlate_bwd(
     g: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Gradients (dsrc, dref) of ``warp_correlate``, float32. Arguments as
-    ``warp_correlate_bwd_plain``; on CUDA, src and ref must be bfloat16 and
-    depth float32. Projections and depth get no gradient."""
+    ``warp_correlate_bwd_plain``; on CUDA, src and ref must be both float32
+    or both bfloat16, and depth float32. Projections and depth get no gradient."""
     if src.device.type == "cpu":
         return warp_correlate_bwd_plain(src, ref, src_proj, ref_proj, depth, g)
     if src.device.type != "cuda":
@@ -68,14 +71,16 @@ def warp_correlate_bwd(
     lib = build.library("warp_correlate_bwd")
     fn = lib.warp_correlate_bwd
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     code = fn(
         src.data_ptr(), ref.data_ptr(), rel.data_ptr(), depth.data_ptr(), gf.data_ptr(),
-        dsrc.data_ptr(), dref.data_ptr(), B * S, S, C, D, H, W, build.stream_handle(src),
+        dsrc.data_ptr(), dref.data_ptr(), B * S, S, C, D, H, W, int(src.dtype == torch.bfloat16),
+        build.stream_handle(src),
     )
     build.check(lib, "warp_correlate_bwd", code)
-    warp_correlate_bwd.launches += 1
+    build.count_launch(warp_correlate_bwd, src.dtype)
     return dsrc, dref
 
 
 warp_correlate_bwd.launches = 0
+warp_correlate_bwd.launches_f32 = 0

@@ -5,8 +5,8 @@ models/dcn.py:55-80): a 3x3 offset/mask conv gives 27 channels read in
 torchvision's interleaved layout, dy_k = off[2k], dx_k = off[2k+1],
 mask_k = sigmoid(off[18 + k]); each tap samples bilinearly with zeros
 padding, is scaled by its mask and contracted with a tap-major weight.
-This is the CPU path and the oracle for the CUDA kernel in
-``ops/cuda/dcn_fused.py``.
+This is the CPU path and the oracle for the CUDA kernels in
+``ops/cuda/dcn_fused.py`` and ``ops/cuda/dcn.py``.
 """
 
 from __future__ import annotations

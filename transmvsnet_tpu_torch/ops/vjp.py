@@ -1,20 +1,29 @@
-"""Differentiable calls of the fused DCN and the warp-correlation.
+"""Differentiable calls of the DCN and the warp-correlation.
 
-Each is a ``torch.autograd.Function`` whose forward is the forward kernel
-(K1 ``dcn_fused``, K2 ``warp_correlate``) and whose backward is the
-backward kernel (K3 ``dcn_bwd``, K4 ``warp_correlate_bwd``). A CPU tensor
-takes each kernel's plain version through the same Function, so the glue
-below runs on the CPU too. Ported from ``transmvsnet_tpu/ops/pallas/
-vjp.py`` (``deform_conv2d_fused_with_vjp``, ``warp_correlate_with_vjp``).
+Each is a ``torch.autograd.Function`` whose forward is a forward kernel
+(K1 ``dcn_fused``, K5 ``dcn.deform_conv2d``, K2/K6 ``warp_correlate``)
+and whose backward is a backward kernel (K3 ``dcn_bwd``, K4
+``warp_correlate_bwd``, each in the forward's activation type). A CPU
+tensor takes each kernel's plain version through the same Function, so
+the glue below runs on the CPU too. Ported from ``transmvsnet_tpu/ops/
+pallas/vjp.py`` (``deform_conv2d_fused_with_vjp``,
+``deform_conv2d_with_vjp``, ``warp_correlate_with_vjp``).
 
-- DCN: the backward recomputes the 27-channel offset/mask conv in float32
-  (the arithmetic of K1's own offset conv; TF32 is switched off around it
-  whatever the global setting, or floors near integers would flip between
-  forward and backward), splits the
-  interleaved channels (dy_k = 2k, dx_k = 2k + 1, mask_k = sigmoid(18 + k)),
-  runs K3, re-interleaves (ddy, ddx), pushes d(mask) through the sigmoid,
-  takes the conv's VJP for dx, d(k_off) and d(b_off), and adds the two dx
-  paths. d(bias) is the sum of the cotangent.
+- Fused DCN (bf16 activations; K1 with K3): the backward recomputes the
+  27-channel offset/mask conv in float32 (the arithmetic of K1's own
+  offset conv; TF32 is switched off around it whatever the global
+  setting, or floors near integers would flip between forward and
+  backward), splits the interleaved channels (dy_k = 2k, dx_k = 2k + 1,
+  mask_k = sigmoid(18 + k)), runs K3, re-interleaves (ddy, ddx), pushes
+  d(mask) through the sigmoid, takes the conv's VJP for dx, d(k_off) and
+  d(b_off), and adds the two dx paths. d(bias) is the sum of the
+  cotangent.
+- DCN with given offsets and mask (the float32 path; K5 with K3): the
+  forward saves the offsets and mask it was given, so nothing is
+  recomputed; the backward returns K3's gradients for x, the offsets,
+  the mask and the weight, and the sum of the cotangent for the bias.
+  Autograd carries the offset and mask gradients on through the caller's
+  offset conv.
 - Warp-correlation: gradients flow to the source and reference features
   only; projections and depth hypotheses get none (the reference builds
   the sample grid without a gradient).
@@ -24,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from transmvsnet_tpu_torch.ops.cuda import dcn
 from transmvsnet_tpu_torch.ops.cuda.dcn_bwd import dcn_bwd
 from transmvsnet_tpu_torch.ops.cuda.dcn_fused import dcn_fused
 from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate
@@ -69,6 +79,28 @@ class _DCNFused(torch.autograd.Function):
         )
 
 
+class _DCN(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, offset_y, offset_x, mask, weight, bias):
+        ctx.save_for_backward(x, offset_y, offset_x, mask, weight)
+        ctx.bias_dtype = bias.dtype
+        return dcn.deform_conv2d(x, offset_y, offset_x, mask, weight, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, offset_y, offset_x, mask, weight = ctx.saved_tensors
+        dx, ddy, ddx, dm, dw = dcn_bwd(x, offset_y, offset_x, mask, weight, g)
+        dbias = g.float().sum(dim=(0, 2, 3))
+        return (
+            dx.to(x.dtype),
+            ddy.to(offset_y.dtype),
+            ddx.to(offset_x.dtype),
+            dm.to(mask.dtype),
+            dw.to(weight.dtype),
+            dbias.to(ctx.bias_dtype),
+        )
+
+
 class _WarpCorrelate(torch.autograd.Function):
     @staticmethod
     def forward(ctx, src, ref, src_proj, ref_proj, depth):
@@ -95,6 +127,21 @@ def dcn_fused_with_vjp(
     return _DCNFused.apply(x, k_off, b_off, weight, bias)
 
 
+def dcn_with_vjp(
+    x: torch.Tensor,
+    offset_y: torch.Tensor,
+    offset_x: torch.Tensor,
+    mask: torch.Tensor,
+    weight: torch.Tensor,
+    bias: torch.Tensor,
+) -> torch.Tensor:
+    """``ops.cuda.dcn.deform_conv2d`` with its gradient: K5 forward, K3
+    backward on CUDA, in x's dtype (float32 or bf16). x [B, C, H, W];
+    offsets and mask [B, 9, H, W]; weight [9, C, C_out] tap-major; bias
+    [C_out]. Returns [B, C_out, H, W] in x's dtype."""
+    return _DCN.apply(x, offset_y, offset_x, mask, weight, bias)
+
+
 def warp_correlate_with_vjp(
     src: torch.Tensor,
     ref: torch.Tensor,
@@ -102,7 +149,8 @@ def warp_correlate_with_vjp(
     ref_proj: torch.Tensor,
     depth: torch.Tensor,
 ) -> torch.Tensor:
-    """``warp_correlate`` with its gradient: K2 forward, K4 backward on CUDA.
-    src [B, S, C, H, W]; ref [B, C, H, W]; fused projections [B, S, 4, 4]
-    and [B, 4, 4]; depth [B, D, H, W]. Returns [B, S, D, H, W] float32."""
+    """``warp_correlate`` with its gradient on CUDA: K2 forward (K6 for
+    float32 features), K4 backward in the features' dtype. src
+    [B, S, C, H, W]; ref [B, C, H, W]; fused projections [B, S, 4, 4] and
+    [B, 4, 4]; depth [B, D, H, W]. Returns [B, S, D, H, W] float32."""
     return _WarpCorrelate.apply(src, ref, src_proj, ref_proj, depth)

@@ -48,9 +48,9 @@ def parse_args(argv=None):
     p.add_argument("--max_w", type=int, default=1152)
     p.add_argument("--ndepths", default="48,32,8")
     p.add_argument("--depth_inter_r", default="4,1,0.5")
-    p.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"],
-                   help="activation dtype; the CUDA kernels take bfloat16, so float32 "
-                        "runs only with --device cpu")
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="activation dtype: float32 (the reference's numerics) or "
+                        "bfloat16 (the faster path)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 

@@ -2,7 +2,7 @@
 torch.profiler.
 
     python -m transmvsnet_tpu_torch.tools.profile [--train] [--logdir ./traces]
-        [--nviews 5 --ndepths 48,32,8]
+        [--nviews 5 --ndepths 48,32,8] [--dtype float32|bfloat16]
 
 Warm-up passes, then ``--iters`` passes traced with CPU and CUDA activity;
 a pass is one forward at the DTU eval setting (batch 1, 1152x864) or, with
@@ -13,7 +13,8 @@ kernels' intervals), the device's idle share, the kernels that take the
 most device time, the port's own kernels' totals, and every launch of
 1 ms or more in the first traced pass, in order. With ``--logdir`` it
 also writes a Chrome trace.
-Weights are random from a seeded generator; bf16 activations.
+Weights are random from a seeded generator; activations in ``--dtype``
+(float32 by default, as the CLIs).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ def parse_args(argv=None):
     p.add_argument("--train", action="store_true", help="profile train steps instead of forwards")
     p.add_argument("--nviews", type=int, default=5)
     p.add_argument("--ndepths", default="48,32,8")
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--warmup", type=int, default=2)
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--top", type=int, default=15)
@@ -66,7 +68,7 @@ def main(argv=None):
 
     dev = torch.device("cuda", 0)
     cfg = ModelConfig(ndepths=tuple(int(x) for x in args.ndepths.split(",")),
-                      compute_dtype="bfloat16")
+                      compute_dtype=args.dtype)
     model = TransMVSNet(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     batch = to_device_batch(example_train_batch(B=batch_size, V=args.nviews, H=height, W=width), dev)
 
@@ -110,6 +112,7 @@ def main(argv=None):
         "pass": "train_step" if args.train else "forward",
         "shape": [batch_size, args.nviews, height, width],
         "ndepths": list(cfg.ndepths),
+        "dtype": cfg.compute_dtype,
         "wall_ms_per_pass": wall_ms,
         "device_busy_ms_per_pass": device_ms,
         "idle_share": 1.0 - device_ms / wall_ms,
@@ -122,8 +125,8 @@ def main(argv=None):
         "port_kernels": {
             k: {"ms_per_pass": sum(v[0] for n, v in by_name.items() if k in n) / 1e3 / args.iters,
                 "launches_per_pass": sum(v[1] for n, v in by_name.items() if k in n) / args.iters}
-            for k in ("dcn_fused_kernel", "warp_correlate_kernel", "dcn_bwd_kernel", "dcn_bwd_dw_kernel",
-                      "warp_correlate_bwd_kernel")
+            for k in ("dcn_fused_kernel", "dcn_kernel", "warp_correlate_kernel", "dcn_bwd_kernel",
+                      "dcn_bwd_dw_kernel", "warp_correlate_bwd_kernel")
         },
         # Launches of 1 ms or more in the first traced pass, in order.
         "long_launches": [

@@ -1,7 +1,7 @@
 """Training CLI: the reference train.py surface on one CUDA card.
 
     # DTU from scratch (reference scripts/train.sh recipe: 512x640, 5 views,
-    # batch 2, 48/32/8 hypotheses; bf16 activations):
+    # batch 2, 48/32/8 hypotheses; float32 activations):
     python -m transmvsnet_tpu_torch.tools.train --dataset dtu \\
         --datapath /data/dtu --trainlist lists/dtu/train.txt \\
         --testlist lists/dtu/val.txt --logdir ./ckpt --epochs 16
@@ -11,11 +11,11 @@
 
 The flags of the JAX package's ``tools/train.py`` without its TPU and mesh
 ones, plus ``--device`` (CUDA unless ``--device cpu``). On CUDA the DCN and
-warp-correlation layers run their forward and backward kernels, which take
-bfloat16 activations, so ``--dtype float32`` runs only with
-``--device cpu``. Checkpoints are ``<logdir>/model_NNNNNN.ckpt`` in the
-reference's layout; ``--resume`` continues from the latest, ``--loadckpt``
-loads weights only.
+warp-correlation layers run their forward and backward kernels in the
+activation dtype, float32 by default as in the JAX package;
+``--dtype bfloat16`` is the faster path. Checkpoints are
+``<logdir>/model_NNNNNN.ckpt`` in the reference's layout; ``--resume``
+continues from the latest, ``--loadckpt`` loads weights only.
 """
 
 from __future__ import annotations
@@ -65,9 +65,9 @@ def parse_args(argv=None):
     p.add_argument("--summary_freq", type=int, default=50)
     p.add_argument("--save_freq", type=int, default=1)
     p.add_argument("--eval_freq", type=int, default=1)
-    p.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"],
-                   help="activation dtype (geometry and losses stay float32); the CUDA "
-                        "kernels take bfloat16, so float32 runs only with --device cpu")
+    p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                   help="activation dtype (geometry and losses stay float32): float32, "
+                        "the reference's numerics, or bfloat16, the faster path")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
