@@ -1,5 +1,6 @@
 """GPU smoke run of the PyTorch/CUDA port: DTU inference and DTU training,
-in bfloat16 and in float32 (the JAX package's default).
+in bfloat16, in float32 (the JAX package's default), and in bfloat16 with
+the fused view sum (``fused_view_sum=True``).
 
     python3 chip_smoke.py
 
@@ -10,19 +11,23 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this repository's
 2. Build: compile every kernel under ``transmvsnet_tpu_torch/csrc``.
 3. Kernel checks: each kernel instantiation against its plain PyTorch
    version on the card, on the same inputs, at every shape its path gives
-   it; kernel and plain times by CUDA events. bf16: K1-K4; float32: K5,
-   K6 and K3/K4's float instantiations; K5's bf16 instantiation (row 4,
-   on no model path) at the bf16 DCN shapes.
+   it; kernel and plain times by CUDA events. bf16: K1-K4 and the fused
+   view sum's K7/K8 (stages 2-3); float32: K5, K6 and K3/K4's float
+   instantiations; K5's bf16 instantiation (row 4, on no model path) at
+   the bf16 DCN shapes.
 4. Inference paths: the cascade at 1152x864, 5 views, batch 1, 48/32/8
-   hypotheses, random weights from a seeded generator, in bfloat16 and
-   then in float32; a few requests with the launch counts read around
-   them; the same model and inputs with the plain ops for agreement;
-   depth-maps/s, peak memory and one forward's time by part of the model.
-   The float32 requests are timed in PyTorch's default arithmetic (cuDNN
-   may use TF32) and compared in full float32.
+   hypotheses, random weights from a seeded generator, in bfloat16, in
+   float32 and in bfloat16 with the fused view sum; a few requests with
+   the launch counts read around them; the same model and inputs with the
+   plain ops for agreement (the fused path also against the unfused bf16
+   kernels); depth-maps/s, peak memory and one forward's time by part of
+   the model; the fused path also times itself and its unfused twin in
+   turns (as does the fused training path). The float32 requests are timed in PyTorch's default
+   arithmetic (cuDNN may use TF32) and compared in full float32.
 5. Training paths: ``train/step.py`` at the DTU recipe (512x640, 5 views,
-   batch 2, 48/32/8, Adam) from seeded random weights, in bfloat16 and in
-   float32; a warm-up step and a few timed steps, in the train CLI's
+   batch 2, 48/32/8, Adam) from seeded random weights, in bfloat16, in
+   float32 and in bfloat16 with the fused view sum; a warm-up step and a
+   few timed steps, in the train CLI's
    arithmetic (cuDNN's default TF32), with the launch counts read around
    them; ms per step split into forward, backward and optimizer, depth
    maps trained per second, peak memory; then one step's gradients
@@ -37,6 +42,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -60,16 +66,25 @@ TRAIN_STEPS = 3
 #   which moves stage-2/3 hypotheses through the argmax; per group this
 #   reaches the noise floor (the plain step with its DCN outputs nudged by
 #   one bf16 step agrees with it no better), so groups are printed only.
-# - the same kernel forward with K3/K4's plain versions in the backward:
-#   identical activations, so each group's cosine is gated at
-#   BWD_COSINE_MIN, and a fault planted in K3 or K4 must fall below it.
+# - the same kernel forward with K3/K4's (and K8's) plain versions in the
+#   backward: identical activations, so each group's cosine is gated at
+#   BWD_COSINE_MIN, and a fault planted in K3, K4 or K8 must fall below it.
 # Groups: FeatureNet (whose gradient passes through K3, and through K4 for
-# the source views), its DCN offset convs alone, and the rest (FMT,
-# PixelwiseNet, CostRegNet), so a fault upstream of the warp cannot hide
-# behind CostRegNet's larger gradients.
+# the source views), its DCN offset convs alone, its stage-1 ARF head, its
+# stage-2 and -3 ARF heads, and the rest (FMT, PixelwiseNet, CostRegNet),
+# so a fault upstream of the warp cannot hide behind CostRegNet's larger
+# gradients. With the fused view sum K4 runs at stage 1 and K8 at stages
+# 2-3, and which stages dominate FeatureNet's gradient depends on the
+# state the steps reached (K8 with dsrc zeroed read 0.939 there in one run
+# and 0.99984 in another of the same seeds, on an NVIDIA H100 80GB HBM3 at
+# 700 W). The stage-2/3 heads' gradient comes only
+# through K8 on that path, and the stage-1 head's mostly through K4; a
+# cosine is blind to the group's scale.
 GRAD_GROUPS = {
     "feature_net": lambda n: n.startswith("feature."),
     "offset_convs": lambda n: "conv_offset_mask" in n,
+    "arf_head_stage1": lambda n: n.startswith("feature.out1."),
+    "arf_heads_stages_2_3": lambda n: n.startswith(("feature.out2.", "feature.out3.")),
     "rest": lambda n: not n.startswith("feature."),
 }
 GRAD_COSINE_MIN = 0.99
@@ -84,6 +99,13 @@ BWD_COSINE_MIN = {"bfloat16": 0.999, "float32": 0.9999}
 # three runs on that card, and the plain step with every DCN output nudged
 # by one float32 step, the witness of that noise, 1 - 1.7e-4.
 F32_COSINE_MIN = 0.995
+# The fused path's stage-3 depth against the unfused bf16 kernels on the
+# same weights and inputs: the two differ only in the float32 order of the
+# weighted view sum before its bf16 cast, so nearly every pixel agrees.
+FUSED_AGREE_MIN = 0.99
+# ... and against the plain ops, as the unfused bf16 path reads (98.95% of
+# stage-3 pixels within one interval on an NVIDIA H100 80GB HBM3 at 700 W).
+FUSED_PLAIN_AGREE_MIN = 0.97
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -98,6 +120,30 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def view_sum(model, fused: bool):
+    """The model with ``fused_view_sum`` set to ``fused`` inside the block."""
+    cfg = model.cfg
+    model.cfg = dataclasses.replace(cfg, fused_view_sum=fused)
+    try:
+        yield
+    finally:
+        model.cfg = cfg
+
+
+def in_turns(model, fn, iters: int, rounds: int = 2) -> dict:
+    """Milliseconds per call of ``fn`` by CUDA events with the unfused and
+    the fused view sum in turns (unfused, fused, fused, unfused, ...), so
+    that both see the same clocks; each entry lists its rounds."""
+    out = {"unfused": [], "fused": []}
+    for r in range(rounds):
+        for fused in ((False, True) if r % 2 == 0 else (True, False)):
+            with view_sum(model, fused):
+                out["fused" if fused else "unfused"].append(cuda_ms(fn, iters=iters, warmup=1))
+    out["fused_over_unfused"] = sum(out["fused"]) / sum(out["unfused"])
+    return out
 
 
 def bound(nbytes: float, flops: float, dtype: torch.dtype) -> dict:
@@ -439,6 +485,117 @@ def warp_bwd_checks(dev, gen, dtype) -> dict:
                      "transmvsnet_tpu/ops/pallas/warp_bwd.py:504", rows, "train" + suffix(dtype))
 
 
+# (stage index, stage, C, D) of the two plane sweeps that take view weights.
+WSUM_SWEEPS = [(i, *sweep) for i, sweep in enumerate(SWEEPS)][1:]
+
+
+def wsum_inputs(gen, dev, b, ph, pw, i, stage, C, D):
+    """``sweep_inputs`` in bf16 plus view weights in [0, 1)."""
+    args = sweep_inputs(gen, dev, b, ph, pw, i, stage, C, D, torch.bfloat16)
+    h, w = args[0].shape[-2:]
+    vw = torch.rand(b, V - 1, h, w, generator=gen).to(dev)
+    return (*args, vw)
+
+
+def valid_share(args) -> float:
+    """Share of (view, hypothesis, pixel) samples that land on the source
+    image, by K2 on the same features and hypotheses."""
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate
+
+    with torch.no_grad():
+        return (warp_correlate(*args[:5]) != 0).float().mean().item()
+
+
+def wsum_checks(dev, gen) -> dict:
+    """K7 (the view-weighted sum, bf16) at stages 2-3 of both paths."""
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import (
+        warp_correlate_wsum,
+        warp_correlate_wsum_plain,
+    )
+
+    S = V - 1
+    rows = []
+    for path, (b, ph, pw) in PATHS.items():
+        for i, stage, C, D in WSUM_SWEEPS:
+            args = wsum_inputs(gen, dev, b, ph, pw, i, stage, C, D)
+            h, w = args[0].shape[-2:]
+            got = warp_correlate_wsum(*args)
+            want = warp_correlate_wsum_plain(*args)
+            torch.cuda.synchronize()
+            # As K2: float32 arithmetic up to summation order and fused
+            # multiply-adds in the projection (~1e-5 px of sample position).
+            res = check_close(got, want, rtol=1e-3, atol_scale=1e-3)
+            if res["n_outside"]:
+                raise AssertionError(f"warp_correlate_wsum disagrees at {path} {stage}: {res}")
+            del got, want
+            valid = valid_share(args)
+            ms = cuda_ms(lambda: warp_correlate_wsum(*args), iters=50, warmup=5)
+            plain_ms = cuda_ms(lambda: warp_correlate_wsum_plain(*args), iters=2, warmup=1)
+            n_samples = b * S * D * h * w
+            # bf16 src and ref; float32 depth, view weights, output, rel.
+            nbytes = (2 * (b * S + b) * C * h * w + 4 * b * D * h * w + 4 * b * S * h * w
+                      + 4 * b * D * h * w + 4 * b * S * 12)
+            # Per sample the projection (~12) and the weighted sum (2);
+            # bilinear sample and product (~10 C) only where it is valid.
+            flops = n_samples * (14 + valid * 10 * C)
+            bd = bound(nbytes, flops, torch.bfloat16)
+            rows.append(dict(path=path + "_fused", shape=[b, S, C, D, h, w], per_pass=1, ms=ms,
+                             plain_ms=plain_ms, nonzero_share=valid, **bd, **res))
+            print(f"warp_correlate_wsum {path} {[b, S, C, D, h, w]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                  f"bound_ms {bd['bound_ms']:.4f} ({bd['bound_by']}) "
+                  f"max_abs_err {res['max_abs_err']:.3g} valid {valid:.3f}", flush=True)
+            del args
+            torch.cuda.empty_cache()
+    return summarise("warp_correlate_wsum", "transmvsnet_tpu_torch/csrc/warp_correlate.cu",
+                     "transmvsnet_tpu/ops/pallas/warp_onehot.py:442", rows, "inference_fused")
+
+
+def wsum_bwd_checks(dev, gen) -> dict:
+    """K8 (dsrc, dref and dvw of the view-weighted sum, bf16) at stages 2-3
+    of the training path."""
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import (
+        warp_correlate_wsum_bwd,
+        warp_correlate_wsum_bwd_plain,
+    )
+
+    Bt, S = TRAIN_B, V - 1
+    rows = []
+    for i, stage, C, D in WSUM_SWEEPS:
+        fwd_args = wsum_inputs(gen, dev, Bt, TRAIN_H, TRAIN_W, i, stage, C, D)
+        h, w = fwd_args[0].shape[-2:]
+        g = torch.randn(Bt, D, h, w, generator=gen).to(dev)
+        args = (*fwd_args, g)
+        got = warp_correlate_wsum_bwd(*args)
+        want = warp_correlate_wsum_bwd_plain(*args)
+        torch.cuda.synchronize()
+        # As K4: float32 arithmetic up to summation order (atomics) and
+        # fused multiply-adds in the projection (~1e-5 px of position).
+        res = check_all(got, want, 1e-3, 1e-3, f"warp_correlate_wsum_bwd at {stage}")
+        del got, want
+        ms = cuda_ms(lambda: warp_correlate_wsum_bwd(*args), iters=10, warmup=2)
+        plain_ms = cuda_ms(lambda: warp_correlate_wsum_bwd_plain(*args), iters=1, warmup=1)
+        valid = valid_share(fwd_args)
+        n_samples = Bt * S * D * h * w
+        nbytes = (2 * (Bt * S + Bt) * C * h * w + 4 * Bt * D * h * w      # src, ref, depth
+                  + 4 * Bt * S * h * w + 4 * Bt * D * h * w + 4 * Bt * S * 12  # vw, g, rel
+                  + 4 * (Bt * S + Bt) * C * h * w + 4 * Bt * S * h * w)     # dsrc, dref, dvw
+        # Projection (~12) per sample; where it is valid, per channel the
+        # bilinear sample (~8), the dref and dvw products (4) and the
+        # scatter (~8).
+        flops = n_samples * (12 + valid * 20 * C)
+        bd = bound(nbytes, flops, torch.bfloat16)
+        rows.append(dict(path="train_fused", shape=[Bt, S, C, D, h, w], per_pass=1, ms=ms,
+                         plain_ms=plain_ms, nonzero_share=valid, **bd, **res))
+        print(f"warp_correlate_wsum_bwd {[Bt, S, C, D, h, w]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
+              f"bound_ms {bd['bound_ms']:.4f} ({bd['bound_by']}) "
+              f"max_abs_err {res['max_abs_err']:.3g} at scale {res['scale']:.3g} valid {valid:.3f}",
+              flush=True)
+        del fwd_args, g, args
+        torch.cuda.empty_cache()
+    return summarise("warp_correlate_wsum_bwd", "transmvsnet_tpu_torch/csrc/warp_correlate_bwd.cu",
+                     "transmvsnet_tpu/ops/pallas/warp_bwd.py:469", rows, "train_fused")
+
+
 def summarise(name, source, replaces, rows, main) -> dict:
     """One kernel instantiation's entry: times and bound per pass of each
     path that runs it (a forward for inference, a step for training: each
@@ -468,8 +625,11 @@ def kernel_counters() -> dict:
     from transmvsnet_tpu_torch.ops.cuda.dcn import deform_conv2d
     from transmvsnet_tpu_torch.ops.cuda.dcn_bwd import dcn_bwd
     from transmvsnet_tpu_torch.ops.cuda.dcn_fused import dcn_fused
-    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate
-    from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import warp_correlate_bwd
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate, warp_correlate_wsum
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import (
+        warp_correlate_bwd,
+        warp_correlate_wsum_bwd,
+    )
 
     return {
         "dcn_fused": (dcn_fused, "launches"),
@@ -481,6 +641,8 @@ def kernel_counters() -> dict:
         "warp_correlate_f32": (warp_correlate, "launches_f32"),
         "dcn_bwd_f32": (dcn_bwd, "launches_f32"),
         "warp_correlate_bwd_f32": (warp_correlate_bwd, "launches_f32"),
+        "warp_correlate_wsum": (warp_correlate_wsum, "launches"),
+        "warp_correlate_wsum_bwd": (warp_correlate_wsum_bwd, "launches"),
     }
 
 
@@ -501,15 +663,20 @@ def expect_launches(launches: dict, per_pass: dict, passes: int, what: str) -> N
         raise AssertionError(f"{what}: expected {per_pass} launches per pass over {passes}: {launches}")
 
 
-# Kernel launches per forward, and per training step, of each dtype's path.
+# Kernel launches per forward, and per training step, of each path.
 FORWARD_LAUNCHES = {
-    "bfloat16": {"dcn_fused": 9, "warp_correlate": 3},
-    "float32": {"dcn_f32": 9, "warp_correlate_f32": 3},
+    "inference": {"dcn_fused": 9, "warp_correlate": 3},
+    "inference_f32": {"dcn_f32": 9, "warp_correlate_f32": 3},
+    "inference_fused": {"dcn_fused": 9, "warp_correlate": 1, "warp_correlate_wsum": 2},
 }
 STEP_LAUNCHES = {
-    "bfloat16": {"dcn_fused": 9, "warp_correlate": 3, "dcn_bwd": 9, "warp_correlate_bwd": 3},
-    "float32": {"dcn_f32": 9, "warp_correlate_f32": 3, "dcn_bwd_f32": 9, "warp_correlate_bwd_f32": 3},
+    "train": {"dcn_fused": 9, "warp_correlate": 3, "dcn_bwd": 9, "warp_correlate_bwd": 3},
+    "train_f32": {"dcn_f32": 9, "warp_correlate_f32": 3, "dcn_bwd_f32": 9, "warp_correlate_bwd_f32": 3},
+    "train_fused": {"dcn_fused": 9, "warp_correlate": 1, "warp_correlate_wsum": 2, "dcn_bwd": 9,
+                    "warp_correlate_bwd": 1, "warp_correlate_wsum_bwd": 2},
 }
+# (activation dtype, fused view sum) of each path.
+PATH_CONFIGS = {"": ("bfloat16", False), "_f32": ("float32", False), "_fused": ("bfloat16", True)}
 
 
 def cudnn_default_arithmetic():
@@ -561,20 +728,22 @@ def module_breakdown(model, forward) -> dict:
     return out
 
 
-def main_path(dev, dtype_name: str) -> dict:
-    """The inference path in one activation dtype. The bf16 requests run in
-    full float32 arithmetic elsewhere (TF32 off); the float32 ones in
-    PyTorch's default arithmetic, as the inference CLI runs them. Kernels
-    and plain ops are compared in full float32 either way."""
+def main_path(dev, sfx: str) -> dict:
+    """The inference path "inference" + ``sfx`` (see PATH_CONFIGS). The bf16
+    requests run in full float32 arithmetic elsewhere (TF32 off); the
+    float32 ones in PyTorch's default arithmetic, as the inference CLI runs
+    them. Kernels and plain ops are compared in full float32 either way;
+    the fused path also against the unfused bf16 kernels."""
     from transmvsnet_tpu_torch.config import ModelConfig
     from transmvsnet_tpu_torch.data.example import DEPTH_MAX, DEPTH_MIN, example_inputs
     from transmvsnet_tpu_torch.models.feature_net import DCN
     from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
 
+    dtype_name, fused = PATH_CONFIGS[sfx]
     f32 = dtype_name == "float32"
-    what = f"inference path ({dtype_name})"
+    what = f"inference path ({dtype_name}{', fused view sum' if fused else ''})"
     gen = torch.Generator().manual_seed(0)
-    cfg = ModelConfig(ndepths=NDEPTHS, compute_dtype=dtype_name)
+    cfg = ModelConfig(ndepths=NDEPTHS, compute_dtype=dtype_name, fused_view_sum=fused)
     model = TransMVSNet(cfg, device=dev, generator=gen).eval()
     # The reference zero-initialises the offset convs; random weights and
     # biases (offsets of about a pixel, non-integer) exercise the
@@ -609,8 +778,9 @@ def main_path(dev, dtype_name: str) -> dict:
         ms_per_map = start.elapsed_time(end) / REQUESTS
         peak = torch.cuda.max_memory_allocated()
         print(f"{what}: {REQUESTS} requests, launches {launches}", flush=True)
-        expect_launches(launches, FORWARD_LAUNCHES[dtype_name], REQUESTS, what)
+        expect_launches(launches, FORWARD_LAUNCHES["inference" + sfx], REQUESTS, what)
         breakdown = module_breakdown(model, forward)
+        turns = {"ms_per_depth_map_in_turns": in_turns(model, forward, REQUESTS)} if fused else {}
 
     out = forward()  # in full float32 arithmetic, as the plain path below
     for s in ("stage1", "stage2", "stage3"):
@@ -632,13 +802,24 @@ def main_path(dev, dtype_name: str) -> dict:
     plain = forward()
     model.use_plain_ops(False)
     interval = cfg.depth_interval_ratios[2] * (DEPTH_MAX - DEPTH_MIN) / NUM_HYP
-    agree = ((out["depth"] - plain["depth"]).abs() <= interval).float().mean().item()
-    dprob = {
-        s: (out[s]["prob_volume"] - plain[s]["prob_volume"]).abs().max().item()
-        for s in ("stage1", "stage2", "stage3")
-    }
+
+    def within_interval(other):
+        return ((out["depth"] - other["depth"]).abs() <= interval).float().mean().item()
+
+    def max_dprob(other):
+        return {s: (out[s]["prob_volume"] - other[s]["prob_volume"]).abs().max().item()
+                for s in ("stage1", "stage2", "stage3")}
+
+    agree, dprob = within_interval(plain), max_dprob(plain)
+    vs_unfused = {}
+    if fused:
+        with view_sum(model, False):
+            unfused = forward()
+        vs_unfused = {"stage3_depth_within_one_interval_of_unfused": within_interval(unfused),
+                      "max_abs_dprob_vs_unfused": max_dprob(unfused), **turns}
     result = {
         "dtype": dtype_name,
+        "fused_view_sum": fused,
         "depth_maps_per_s": 1e3 / ms_per_map,
         "ms_per_depth_map": ms_per_map,
         "plain_ops_ms_per_depth_map": plain_ms,
@@ -647,12 +828,21 @@ def main_path(dev, dtype_name: str) -> dict:
         "ms_by_part": breakdown,
         "stage3_depth_within_one_interval_of_plain": agree,
         "max_abs_dprob_vs_plain": dprob,
+        **vs_unfused,
     }
     print(f"{what}: " + json.dumps(result), flush=True)
+    if fused:
+        if not vs_unfused["stage3_depth_within_one_interval_of_unfused"] >= FUSED_AGREE_MIN:
+            raise AssertionError(f"{what}: stage-3 depth agrees with the unfused kernels below "
+                                 f"{FUSED_AGREE_MIN}: {vs_unfused}")
+        if not agree >= FUSED_PLAIN_AGREE_MIN:
+            raise AssertionError(f"{what}: stage-3 depth agrees with the plain ops below "
+                                 f"{FUSED_PLAIN_AGREE_MIN}: {agree}")
     return result
 
 
-def train_path(dev, dtype_name: str) -> dict:
+def train_path(dev, sfx: str) -> dict:
+    """The training path "train" + ``sfx`` (see PATH_CONFIGS)."""
     from transmvsnet_tpu_torch.config import ModelConfig
     from transmvsnet_tpu_torch.data.example import example_train_batch
     from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
@@ -660,8 +850,9 @@ def train_path(dev, dtype_name: str) -> dict:
     from transmvsnet_tpu_torch.train.schedule import make_optimizer, warmup_multistep
     from transmvsnet_tpu_torch.train.step import TrainState, make_train_step
 
-    what = f"train path ({dtype_name})"
-    cfg = ModelConfig(ndepths=NDEPTHS, compute_dtype=dtype_name)
+    dtype_name, fused = PATH_CONFIGS[sfx]
+    what = f"train path ({dtype_name}{', fused view sum' if fused else ''})"
+    cfg = ModelConfig(ndepths=NDEPTHS, compute_dtype=dtype_name, fused_view_sum=fused)
     # The reference's initialisation (offset convs at zero), seeded.
     model = TransMVSNet(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     # DTU-recipe inputs: example cameras, a smooth depth target inside the
@@ -702,7 +893,7 @@ def train_path(dev, dtype_name: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
     print(f"{what}: {TRAIN_STEPS} steps, launches {launches}", flush=True)
-    expect_launches(launches, STEP_LAUNCHES[dtype_name], TRAIN_STEPS, what)
+    expect_launches(launches, STEP_LAUNCHES["train" + sfx], TRAIN_STEPS, what)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{what}: non-finite loss: {losses}")
     changed = sum(int(not torch.equal(a, p.detach())) for a, p in zip(before, model.parameters()))
@@ -718,6 +909,7 @@ def train_path(dev, dtype_name: str) -> dict:
 
     result = {
         "dtype": dtype_name,
+        "fused_view_sum": fused,
         "ms_per_step": ms_per_step,
         "ms_by_phase": split,
         "depth_maps_trained_per_s": 1e3 * TRAIN_B / ms_per_step,
@@ -730,7 +922,13 @@ def train_path(dev, dtype_name: str) -> dict:
     print(f"{what}: " + json.dumps(result), flush=True)
     if not result["losses_falling"]:
         raise AssertionError(f"{what}: the loss did not fall over {len(losses)} steps: {losses}")
-    result["gradients"] = grad_comparison(model, state, run, dtype_name)
+    # The gradients are compared at the state every path reaches here
+    # (after 1 + TRAIN_STEPS steps): the in-turn timing below trains on.
+    result["gradients"] = grad_comparison(model, state, run, dtype_name, fused)
+    if fused:
+        with cudnn_default_arithmetic():
+            result["ms_per_step_in_turns"] = in_turns(model, run, TRAIN_STEPS)
+        print(f"{what}: ms per step in turns {json.dumps(result['ms_per_step_in_turns'])}", flush=True)
     return result
 
 
@@ -800,22 +998,27 @@ def nudged_dcn_outputs(model, seed: int):
             h.remove()
 
 
-def grad_comparison(model, state, run, dtype_name: str) -> dict:
+def grad_comparison(model, state, run, dtype_name: str, fused: bool) -> dict:
     """One step's gradients from the same weights, batch, optimizer state
     and BN buffers through the kernels and through each plain reference
     (see GRAD_COSINE_MIN), beside two witnesses of the noise (the plain
     step repeated, and with its DCN outputs nudged by one step of the
     activation type) and the kernel step with a fault planted in K3 and in
-    K4, which the per-group gate must catch. float32 also gates every
-    group against the plain step (F32_COSINE_MIN)."""
+    K4 (and, on the fused path, in K8), which the per-group gate must
+    catch. float32 also gates every group against the plain step
+    (F32_COSINE_MIN)."""
     from transmvsnet_tpu_torch.ops import vjp
     from transmvsnet_tpu_torch.ops.cuda.dcn_bwd import dcn_bwd_plain
-    from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import warp_correlate_bwd_plain
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import (
+        warp_correlate_bwd_plain,
+        warp_correlate_wsum_bwd_plain,
+    )
 
     @contextlib.contextmanager
     def plain_backward():
         with patched(vjp, "dcn_bwd", lambda _: dcn_bwd_plain), \
-                patched(vjp, "warp_correlate_bwd", lambda _: warp_correlate_bwd_plain):
+                patched(vjp, "warp_correlate_bwd", lambda _: warp_correlate_bwd_plain), \
+                patched(vjp, "warp_correlate_wsum_bwd", lambda _: warp_correlate_wsum_bwd_plain):
             yield
 
     model_sd = {k: v.clone() for k, v in model.state_dict().items()}
@@ -831,10 +1034,16 @@ def grad_comparison(model, state, run, dtype_name: str) -> dict:
         "fault_k3_no_offset_grad": (False, lambda: patched(vjp, "dcn_bwd", zero_outputs(1, 2)), "plain_backward"),
         "fault_k4_no_dsrc": (False, lambda: patched(vjp, "warp_correlate_bwd", zero_outputs(0)), "plain_backward"),
     }
+    faults = ["fault_k3_no_offset_grad", "fault_k4_no_dsrc"]
+    if fused:
+        runs["fault_k8_no_dsrc"] = (False, lambda: patched(vjp, "warp_correlate_wsum_bwd", zero_outputs(0)),
+                                    "plain_backward")
+        faults.append("fault_k8_no_dsrc")
     f32 = dtype_name == "float32"
     bwd_min = BWD_COSINE_MIN[dtype_name]
     grads = {}
-    result = {"dtype": dtype_name, "bwd_cosine_min": bwd_min,
+    what = f"train path ({dtype_name}{', fused view sum' if fused else ''})"
+    result = {"dtype": dtype_name, "fused_view_sum": fused, "bwd_cosine_min": bwd_min,
               **({"group_cosine_min": F32_COSINE_MIN} if f32 else {"cosine_min": GRAD_COSINE_MIN})}
     for name, (plain, context, ref) in runs.items():
         model.load_state_dict(model_sd)
@@ -848,7 +1057,7 @@ def grad_comparison(model, state, run, dtype_name: str) -> dict:
             result[name] = {"vs": ref, "cosine": group_cosines(grads[name], grads[ref]),
                             **tensor_errors(grads[name], grads[ref])}
     model.use_plain_ops(False)
-    print(f"train path ({dtype_name}) gradients: " + json.dumps(result), flush=True)
+    print(f"{what} gradients: " + json.dumps(result), flush=True)
     if f32:
         low = {k: c for k, c in result["kernels"]["cosine"].items() if not c >= F32_COSINE_MIN}
         if low:
@@ -858,7 +1067,7 @@ def grad_comparison(model, state, run, dtype_name: str) -> dict:
     low = {k: c for k, c in result["kernels_vs_plain_backward"]["cosine"].items() if not c >= bwd_min}
     if low:
         raise AssertionError(f"gradient cosine vs the plain backward below {bwd_min}: {low}")
-    for name in ("fault_k3_no_offset_grad", "fault_k4_no_dsrc"):
+    for name in faults:
         if min(result[name]["cosine"].values()) >= bwd_min:
             raise AssertionError(f"the gradient gate misses the planted {name}: {result[name]}")
     return result
@@ -896,14 +1105,14 @@ def main() -> int:
     kernels = [dcn_checks(dev, gen), warp_checks(dev, gen, bf16), dcn_bwd_checks(dev, gen, bf16),
                warp_bwd_checks(dev, gen, bf16), dcn_given_checks(dev, gen, f32),
                dcn_given_checks(dev, gen, bf16), warp_checks(dev, gen, f32),
-               dcn_bwd_checks(dev, gen, f32), warp_bwd_checks(dev, gen, f32)]
+               dcn_bwd_checks(dev, gen, f32), warp_bwd_checks(dev, gen, f32),
+               wsum_checks(dev, gen), wsum_bwd_checks(dev, gen)]
     paths = {}
-    for dtype_name in ("bfloat16", "float32"):
-        sfx = suffix(getattr(torch, dtype_name))
+    for sfx in PATH_CONFIGS:
         torch.cuda.empty_cache()
-        paths["inference" + sfx] = main_path(dev, dtype_name)
+        paths["inference" + sfx] = main_path(dev, sfx)
         torch.cuda.empty_cache()
-        paths["train" + sfx] = train_path(dev, dtype_name)
+        paths["train" + sfx] = train_path(dev, sfx)
     for k in kernels:
         # Counts over each path's timed run (REQUESTS forwards, TRAIN_STEPS
         # steps); "launches" is the kernel's main path's (0 for row 4's

@@ -2,9 +2,9 @@
 at small and ragged shapes that the main path does not give them (widths
 that are no multiple of a block, every supported channel count, offsets
 and projections that leave the image, zero offsets), each instantiation
-(bf16: K1-K4, K5's row-4 instantiation; float32: K5, K6, K3 and K4), and
-the autograd Functions that pair them against autograd of the plain
-forwards, in both activation types.
+(bf16: K1-K4, K5's row-4 instantiation, the fused view sum K7/K8;
+float32: K5, K6, K3 and K4), and the autograd Functions that pair them
+against autograd of the plain forwards, in both activation types.
 
 Needs a CUDA card and nvcc; skips elsewhere. On the GPU machine, which has
 no JAX, run it without the suite's conftest:
@@ -395,3 +395,99 @@ def test_warp_function_f32_matches_plain_autograd(dev):
     for a, b, name in zip(*grads, ("src", "ref")):
         assert a.dtype == torch.float32, name
         assert_close_f32(a, b, name)
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("H,W", [(5, 9), (31, 47), (40, 300)])
+def test_warp_correlate_wsum_matches_plain(dev, C, H, W):
+    """K7: the view-weighted sum over the source views, with zero weights
+    at some pixels; 40x300 spans more than one block per batch."""
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import (
+        warp_correlate_wsum,
+        warp_correlate_wsum_plain,
+    )
+
+    gen = torch.Generator().manual_seed(C + H + 17)
+    args = warp_scene(gen, dev, torch.bfloat16, C, H, W)
+    vw = torch.rand(2, 3, H, W, generator=gen)
+    vw[:, 1, : H // 3] = 0.0
+    vw = vw.to(dev)
+    before = warp_correlate_wsum.launches
+    got = warp_correlate_wsum(*args, vw)
+    torch.cuda.synchronize()
+    assert warp_correlate_wsum.launches == before + 1
+    want = warp_correlate_wsum_plain(*args, vw)
+    assert got.shape == (2, 5, H, W) and got.dtype == torch.float32
+    # Same float32 arithmetic up to summation order and fused multiply-adds.
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("H,W", [(5, 9), (31, 47)])
+def test_warp_correlate_wsum_bwd_matches_plain(dev, C, H, W):
+    """K8: dsrc, dref and dvw, with zero weights at some pixels (dvw is
+    still owed there)."""
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import (
+        warp_correlate_wsum_bwd,
+        warp_correlate_wsum_bwd_plain,
+    )
+
+    gen = torch.Generator().manual_seed(C + H + 19)
+    fwd = warp_scene(gen, dev, torch.bfloat16, C, H, W)
+    vw = torch.rand(2, 3, H, W, generator=gen)
+    vw[:, 1, : H // 3] = 0.0
+    g = torch.randn(2, 5, H, W, generator=gen)
+    vw, g = vw.to(dev), g.to(dev)
+    before = warp_correlate_wsum_bwd.launches
+    got = warp_correlate_wsum_bwd(*fwd, vw, g)
+    torch.cuda.synchronize()
+    assert warp_correlate_wsum_bwd.launches == before + 1
+    want = warp_correlate_wsum_bwd_plain(*fwd, vw, g)
+    for a, b, name in zip(got, want, ("dsrc", "dref", "dvw")):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        assert_close_f32(a, b, name)
+    assert got[2][:, 1, : H // 3].abs().max() > 0
+
+
+def test_wsum_function_matches_plain_autograd(dev):
+    """warp_correlate_wsum_with_vjp (K7 + K8) against autograd of K7's plain
+    version: gradients to the source and reference features and the view
+    weights; none to the projections and hypotheses."""
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate_wsum_plain
+    from transmvsnet_tpu_torch.ops.vjp import warp_correlate_wsum_with_vjp
+
+    gen = torch.Generator().manual_seed(23)
+    src, ref, sp, rp, depth = warp_scene(gen, dev, torch.bfloat16, 16, 9, 11, B=1, S=2, D=3)
+    vw = torch.rand(1, 2, 9, 11, generator=gen).to(dev)
+    g = torch.randn(1, 3, 9, 11, generator=gen).to(dev)
+    grads = []
+    for fn in (warp_correlate_wsum_with_vjp, warp_correlate_wsum_plain):
+        leaves = [t.clone().requires_grad_() for t in (src, ref, sp, rp, depth, vw)]
+        (fn(*leaves) * g).sum().backward()
+        grads.append([t.grad for t in leaves])
+    assert all(t is None for t in grads[0][2:5])
+    for i, name in ((0, "src"), (1, "ref"), (5, "vw")):
+        a, b = grads[0][i], grads[1][i]
+        assert a.dtype == b.dtype, name
+        # Gradients of the features rounded to their bf16; the weights'
+        # float32 up to summation order.
+        torch.testing.assert_close(a.float(), b.float(), rtol=2**-7, atol=1e-3 * b.abs().max().item(),
+                                   msg=name)
+
+
+def test_wsum_wrappers_refuse_float32_features_and_gradients(dev):
+    """K7 and K8 have bf16 instantiations only; the raw K7 call has no
+    gradient, so with grad mode on it refuses inputs that require one."""
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate_wsum
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import warp_correlate_wsum_bwd
+
+    gen = torch.Generator().manual_seed(29)
+    src, ref, sp, rp, depth = warp_scene(gen, dev, torch.float32, 8, 5, 9)
+    vw = torch.rand(2, 3, 5, 9, generator=gen).to(dev)
+    with pytest.raises(TypeError, match="bfloat16 features"):
+        warp_correlate_wsum(src, ref, sp, rp, depth, vw)
+    with pytest.raises(TypeError, match="bfloat16 features"):
+        warp_correlate_wsum_bwd(src, ref, sp, rp, depth, vw, torch.zeros(2, 5, 5, 9, device=dev))
+    w = vw.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no gradient"):
+        warp_correlate_wsum(src.to(torch.bfloat16), ref.to(torch.bfloat16), sp, rp, depth, w)

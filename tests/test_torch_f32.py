@@ -276,9 +276,8 @@ def test_dcn_layer_route_follows_the_dtype(dtype, route):
     assert type(out.grad_fn).__name__ == route
 
 
-def _train_step_grads(plain: bool, batch):
-    model = TransMVSNet(ModelConfig(ndepths=NDEPTHS), device="cpu",
-                        generator=torch.Generator().manual_seed(0))
+def _train_step_grads(plain: bool, batch, cfg: ModelConfig = ModelConfig(ndepths=NDEPTHS)):
+    model = TransMVSNet(cfg, device="cpu", generator=torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
         for m in model.modules():

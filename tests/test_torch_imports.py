@@ -128,3 +128,18 @@ def test_backward_wrappers_refuse_other_devices():
         warp_correlate_bwd(torch.empty(1, 1, 8, 4, 4, device=m), torch.empty(1, 8, 4, 4, device=m),
                            torch.empty(1, 1, 4, 4, device=m), torch.empty(1, 4, 4, device=m),
                            torch.empty(1, 2, 4, 4, device=m), torch.empty(1, 1, 2, 4, 4, device=m))
+
+
+def test_view_sum_wrappers_refuse_other_devices():
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate_wsum
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import warp_correlate_wsum_bwd
+
+    m = torch.device("meta")
+    args = (torch.empty(1, 2, 8, 4, 4, device=m, dtype=torch.bfloat16),
+            torch.empty(1, 8, 4, 4, device=m, dtype=torch.bfloat16), torch.empty(1, 2, 4, 4, device=m),
+            torch.empty(1, 4, 4, device=m), torch.empty(1, 3, 4, 4, device=m),
+            torch.empty(1, 2, 4, 4, device=m))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        warp_correlate_wsum(*args)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        warp_correlate_wsum_bwd(*args, torch.empty(1, 3, 4, 4, device=m))

@@ -122,7 +122,7 @@ class TestKernelChecks:
         for C in (8, 16, 32):
             assert k2._check(*self.args(C)) == (1, 2, C, 6, 12, 16)
 
-    def test_refuses_float32_features(self):
+    def test_refuses_mixed_feature_dtypes(self):
         # A float32 source beside a bf16 reference: the kernel has a
         # float32 and a bf16 instantiation, one dtype for both.
         a = self.args()

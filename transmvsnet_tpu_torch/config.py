@@ -25,6 +25,11 @@ class ModelConfig:
     # Activation dtype: "float32" or "bfloat16" (geometry, softmax and
     # depth stay float32 either way).
     compute_dtype: str = "float32"
+    # Accumulate the weighted view sum inside the warp kernel at stages
+    # with precomputed view weights (2-3) when the features are bf16,
+    # never materialising the [B, S, D, h, w] per-view volume (K7 forward,
+    # K8 backward). Float32 stays on the per-view route either way.
+    fused_view_sum: bool = False
 
     @property
     def num_stages(self) -> int:

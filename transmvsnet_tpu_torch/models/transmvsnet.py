@@ -6,7 +6,9 @@ PixelwiseNet visibility (computed at stage 1, nearest-upsampled x2 for the
 later stages), 3-D U-Net regularisation, softmax over depth, winner-take-
 all depth with max-probability confidence. Views go through FeatureNet as
 one batch; all source views of a stage go through one warp-correlation
-launch. ``forward`` keeps the JAX package's channel-last input contract.
+launch (with ``fused_view_sum`` and bf16 features, stages 2-3 sum the
+views inside it). ``forward`` keeps the JAX package's channel-last input
+contract.
 """
 
 from __future__ import annotations
@@ -21,14 +23,17 @@ from transmvsnet_tpu_torch.models.blocks import init_parameters, resolve_device
 from transmvsnet_tpu_torch.models.cost_reg import CostRegNet, PixelwiseNet
 from transmvsnet_tpu_torch.models.feature_net import DCN, FeatureNet
 from transmvsnet_tpu_torch.models.fmt import FMTWithPathway
-from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate_plain
+from transmvsnet_tpu_torch.ops.cuda.warp_correlate import (
+    warp_correlate_plain,
+    warp_correlate_wsum_plain,
+)
 from transmvsnet_tpu_torch.ops.geometry import (
     fuse_projection,
     initial_depth_samples,
     refine_depth_samples,
 )
 from transmvsnet_tpu_torch.ops.sampling import resize_bilinear, upsample_nearest_2x
-from transmvsnet_tpu_torch.ops.vjp import warp_correlate_with_vjp
+from transmvsnet_tpu_torch.ops.vjp import warp_correlate_with_vjp, warp_correlate_wsum_with_vjp
 
 
 def depth_wta(prob_volume: torch.Tensor, depth_values: torch.Tensor) -> torch.Tensor:
@@ -75,9 +80,9 @@ class TransMVSNet(nn.Module):
         self.to(device)
 
     def use_plain_ops(self, plain: bool) -> None:
-        """Route both kernels' call sites to their plain PyTorch forwards on
-        any device, differentiated by autograd (True), or back to the
-        kernels' autograd Functions (False)."""
+        """Route the DCN and warp-correlation call sites to their plain
+        PyTorch forwards on any device, differentiated by autograd (True),
+        or back to the kernels' autograd Functions (False)."""
         self.plain_ops = plain
         for m in self.modules():
             if isinstance(m, DCN):
@@ -109,25 +114,34 @@ class TransMVSNet(nn.Module):
         S = V - 1
         D = depth_values.shape[1]
         fused = fuse_projection(proj.float())
-        warp = warp_correlate_plain if self.plain_ops else warp_correlate_with_vjp
-        sim = warp(
+        args = (
             features[:, 1:].contiguous(),
             features[:, 0].contiguous(),
             fused[:, 1:],
             fused[:, 0],
             depth_values.float().contiguous(),
-        )  # [B, S, D, h, w] float32
-        if view_weights is None:
-            # Gradients flow through the weights used in this stage's sum;
-            # later stages get the detached copy (reference
-            # TransMVSNet.py:82-84,107).
-            w_used = self.DepthNet.pixel_wise_net(sim.reshape(B * S, 1, D, h, w))
-            w_used = w_used.reshape(B, S, h, w)
-            view_weights = w_used.detach()
+        )
+        if view_weights is not None and self.cfg.fused_view_sum and features.dtype == torch.bfloat16:
+            # Stages 2-3 with bf16 features: the view-weighted sum inside
+            # the warp kernel (K7/K8), as the JAX package's fused route
+            # (transmvsnet_tpu/models/transmvsnet.py:156-189).
+            wsum = warp_correlate_wsum_plain if self.plain_ops else warp_correlate_wsum_with_vjp
+            weighted = wsum(*args, view_weights.float().contiguous())
+            similarity = weighted / (1e-5 + view_weights.sum(1, keepdim=True))
         else:
-            w_used = view_weights
-        wb = w_used[:, :, None]
-        similarity = (sim * wb).sum(1) / (1e-5 + wb.sum(1))
+            warp = warp_correlate_plain if self.plain_ops else warp_correlate_with_vjp
+            sim = warp(*args)  # [B, S, D, h, w] float32
+            if view_weights is None:
+                # Gradients flow through the weights used in this stage's
+                # sum; later stages get the detached copy (reference
+                # TransMVSNet.py:82-84,107).
+                w_used = self.DepthNet.pixel_wise_net(sim.reshape(B * S, 1, D, h, w))
+                w_used = w_used.reshape(B, S, h, w)
+                view_weights = w_used.detach()
+            else:
+                w_used = view_weights
+            wb = w_used[:, :, None]
+            similarity = (sim * wb).sum(1) / (1e-5 + wb.sum(1))
         cost = cost_reg(similarity.to(self.dtype)[:, None])[:, 0]
         prob_volume = torch.softmax(cost.float(), dim=1)
         outputs = {

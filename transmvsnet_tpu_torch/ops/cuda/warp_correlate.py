@@ -1,14 +1,18 @@
-"""Warp-correlation forward: CUDA kernel ``csrc/warp_correlate.cu`` and its
-plain version.
+"""Warp-correlation forward: CUDA kernels ``csrc/warp_correlate.cu`` and
+their plain versions.
 
-Replaces the TPU kernels ``transmvsnet_tpu/ops/pallas/warp_onehot.py::
-warp_correlate_onehot`` (bf16 features: the kernel's bf16 instantiation,
-K2) and ``warp_rowsweep.py::warp_correlate_rowsweep`` (float32 features:
-its float instantiation, K6). All S source views of a batch go through one
-launch. ``warp_correlate`` launches the kernel for a CUDA tensor and takes
-``warp_correlate_plain`` only for a CPU tensor; anything the kernel does
-not take raises. ``warp_correlate.launches`` counts K2's launches,
-``warp_correlate.launches_f32`` K6's.
+``warp_correlate`` replaces the TPU kernels ``transmvsnet_tpu/ops/pallas/
+warp_onehot.py::warp_correlate_onehot`` (bf16 features: the kernel's bf16
+instantiation, K2) and ``warp_rowsweep.py::warp_correlate_rowsweep``
+(float32 features: its float instantiation, K6). ``warp_correlate_wsum``
+replaces ``warp_onehot.py::warp_correlate_wsum_onehot`` (bf16 features,
+K7): the view-weighted sum over the source views, without the per-view
+volume. All S source views of a batch go through one launch. Each wrapper
+launches its kernel for a CUDA tensor and takes its plain version only for
+a CPU tensor; anything the kernel does not take raises.
+``warp_correlate.launches`` counts K2's launches,
+``warp_correlate.launches_f32`` K6's, ``warp_correlate_wsum.launches``
+K7's.
 """
 
 from __future__ import annotations
@@ -133,3 +137,76 @@ def warp_correlate(
 
 warp_correlate.launches = 0
 warp_correlate.launches_f32 = 0
+
+
+def warp_correlate_wsum_plain(
+    src: torch.Tensor,
+    ref: torch.Tensor,
+    src_proj: torch.Tensor,
+    ref_proj: torch.Tensor,
+    depth: torch.Tensor,
+    vw: torch.Tensor,
+) -> torch.Tensor:
+    """K7's function in plain PyTorch, computed in float32: the per-view
+    similarity weighted by vw [B, S, H, W] and summed over the views.
+    Other arguments as ``warp_correlate_plain``. Returns [B, D, H, W]."""
+    sim = warp_correlate_plain(src, ref, src_proj, ref_proj, depth)
+    return (sim * vw.float()[:, :, None]).sum(1)
+
+
+def _check_wsum(src, ref, src_proj, ref_proj, depth, vw) -> tuple[int, int, int, int, int, int]:
+    """What K7 and K8 take: ``_check``'s, bf16 features only, and float32
+    view weights [B, S, H, W]; returns (B, S, C, D, H, W)."""
+    B, S, C, D, H, W = _check(src, ref, src_proj, ref_proj, depth)
+    if src.dtype != torch.bfloat16:
+        raise TypeError(f"warp_correlate_wsum kernels take bfloat16 features, got {src.dtype}")
+    if vw.dtype != torch.float32:
+        raise TypeError(f"warp_correlate_wsum kernels take float32 view weights, got {vw.dtype}")
+    if tuple(vw.shape) != (B, S, H, W):
+        raise ValueError(f"view weights must be [{B}, {S}, {H}, {W}], got {tuple(vw.shape)}")
+    if not vw.is_contiguous():
+        raise ValueError("warp_correlate_wsum needs contiguous view weights")
+    if vw.device != src.device:
+        raise ValueError(f"warp_correlate_wsum: inputs on {vw.device} and {src.device}")
+    return B, S, C, D, H, W
+
+
+def warp_correlate_wsum(
+    src: torch.Tensor,
+    ref: torch.Tensor,
+    src_proj: torch.Tensor,
+    ref_proj: torch.Tensor,
+    depth: torch.Tensor,
+    vw: torch.Tensor,
+) -> torch.Tensor:
+    """Arguments as ``warp_correlate_wsum_plain``; on CUDA, src and ref must
+    be bfloat16, depth and vw float32. Returns [B, D, H, W] float32. The
+    CUDA result has no gradient, so with grad mode on, inputs that require
+    one raise; ``ops.vjp.warp_correlate_wsum_with_vjp`` is the
+    differentiable call."""
+    if src.device.type == "cpu":
+        return warp_correlate_wsum_plain(src, ref, src_proj, ref_proj, depth, vw)
+    if src.device.type != "cuda":
+        raise ValueError(f"warp_correlate_wsum runs on cuda or cpu tensors, got {src.device}")
+    if torch.is_grad_enabled() and (src.requires_grad or ref.requires_grad or vw.requires_grad):
+        raise RuntimeError(
+            "warp_correlate_wsum's kernel output has no gradient: call it under torch.no_grad() "
+            "or through ops.vjp.warp_correlate_wsum_with_vjp"
+        )
+    B, S, C, D, H, W = _check_wsum(src, ref, src_proj, ref_proj, depth, vw)
+    rel = relative_rows(src_proj, ref_proj)
+    out = torch.empty((B, D, H, W), dtype=torch.float32, device=src.device)
+    lib = build.library("warp_correlate")
+    fn = lib.warp_correlate_wsum_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    code = fn(
+        src.data_ptr(), ref.data_ptr(), rel.data_ptr(), depth.data_ptr(), vw.data_ptr(),
+        out.data_ptr(), B, S, C, D, H, W, build.stream_handle(src),
+    )
+    build.check(lib, "warp_correlate", code)
+    build.count_launch(warp_correlate_wsum, src.dtype)
+    return out
+
+
+warp_correlate_wsum.launches = 0

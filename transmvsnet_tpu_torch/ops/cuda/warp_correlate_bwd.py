@@ -1,15 +1,18 @@
-"""Warp-correlation backward: CUDA kernel ``csrc/warp_correlate_bwd.cu`` and
-its plain version.
+"""Warp-correlation backward: CUDA kernels ``csrc/warp_correlate_bwd.cu``
+and their plain versions.
 
-Replaces the TPU kernel ``transmvsnet_tpu/ops/pallas/warp_bwd.py::
-warp_correlate_bwd`` (bf16 features, the kernel's bf16 instantiation); its
-float32 instantiation is the float32 path's backward, where the JAX
-package differentiates the XLA warp. All S source views of a batch go
-through one launch. ``warp_correlate_bwd`` launches the kernel for a CUDA
-tensor and takes ``warp_correlate_bwd_plain`` only for a CPU tensor;
-anything the kernel does not take raises. ``warp_correlate_bwd.launches``
-counts the bf16 instantiation's launches, ``warp_correlate_bwd.launches_f32``
-the float32 one's.
+``warp_correlate_bwd`` (K4) replaces the TPU kernel ``transmvsnet_tpu/ops/
+pallas/warp_bwd.py::warp_correlate_bwd`` (bf16 features, the kernel's bf16
+instantiation); its float32 instantiation is the float32 path's backward,
+where the JAX package differentiates the XLA warp.
+``warp_correlate_wsum_bwd`` (K8, bf16 features) replaces
+``warp_bwd.py::warp_correlate_wsum_bwd``, the gradients of the
+view-weighted sum (K7), view weights included. All S source views of a
+batch go through one launch. Each wrapper launches its kernel for a CUDA
+tensor and takes its plain version only for a CPU tensor; anything the
+kernel does not take raises. ``warp_correlate_bwd.launches`` counts K4's
+bf16 instantiation's launches, ``warp_correlate_bwd.launches_f32`` the
+float32 one's, ``warp_correlate_wsum_bwd.launches`` K8's.
 """
 
 from __future__ import annotations
@@ -21,8 +24,10 @@ import torch
 from transmvsnet_tpu_torch.ops.cuda import build
 from transmvsnet_tpu_torch.ops.cuda.warp_correlate import (
     _check,
+    _check_wsum,
     relative_rows,
     warp_correlate_plain,
+    warp_correlate_wsum_plain,
 )
 
 
@@ -84,3 +89,66 @@ def warp_correlate_bwd(
 
 warp_correlate_bwd.launches = 0
 warp_correlate_bwd.launches_f32 = 0
+
+
+def warp_correlate_wsum_bwd_plain(
+    src: torch.Tensor,
+    ref: torch.Tensor,
+    src_proj: torch.Tensor,
+    ref_proj: torch.Tensor,
+    depth: torch.Tensor,
+    vw: torch.Tensor,
+    g: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K8's function in plain PyTorch: autograd of
+    ``warp_correlate_wsum_plain`` in float32 with respect to the features
+    and the view weights. vw [B, S, H, W]; g [B, D, H, W]; other arguments
+    as ``warp_correlate_bwd_plain``. Returns (dsrc, dref, dvw), float32."""
+    with torch.enable_grad():
+        s = src.detach().float().requires_grad_()
+        r = ref.detach().float().requires_grad_()
+        w = vw.detach().float().requires_grad_()
+        out = warp_correlate_wsum_plain(s, r, src_proj.detach(), ref_proj.detach(), depth.detach(), w)
+        return torch.autograd.grad(out, (s, r, w), g.float())
+
+
+def warp_correlate_wsum_bwd(
+    src: torch.Tensor,
+    ref: torch.Tensor,
+    src_proj: torch.Tensor,
+    ref_proj: torch.Tensor,
+    depth: torch.Tensor,
+    vw: torch.Tensor,
+    g: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dsrc, dref, dvw) of ``warp_correlate_wsum``, float32.
+    Arguments as ``warp_correlate_wsum_bwd_plain``; on CUDA, src and ref
+    must be bfloat16, depth and vw float32. Projections and depth get no
+    gradient."""
+    if src.device.type == "cpu":
+        return warp_correlate_wsum_bwd_plain(src, ref, src_proj, ref_proj, depth, vw, g)
+    if src.device.type != "cuda":
+        raise ValueError(f"warp_correlate_wsum_bwd runs on cuda or cpu tensors, got {src.device}")
+    B, S, C, D, H, W = _check_wsum(src, ref, src_proj, ref_proj, depth, vw)
+    if tuple(g.shape) != (B, D, H, W) or g.device != src.device:
+        raise ValueError(f"g must be [{B}, {D}, {H}, {W}] on {src.device}, got {tuple(g.shape)}")
+    rel = relative_rows(src_proj, ref_proj)
+    gf = g.float().contiguous()
+    dsrc = torch.zeros((B, S, C, H, W), dtype=torch.float32, device=src.device)
+    dref = torch.zeros((B, C, H, W), dtype=torch.float32, device=src.device)
+    dvw = torch.empty((B, S, H, W), dtype=torch.float32, device=src.device)
+    lib = build.library("warp_correlate_bwd")
+    fn = lib.warp_correlate_wsum_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    code = fn(
+        src.data_ptr(), ref.data_ptr(), rel.data_ptr(), depth.data_ptr(), vw.data_ptr(),
+        gf.data_ptr(), dsrc.data_ptr(), dref.data_ptr(), dvw.data_ptr(), B * S, S, C, D, H, W,
+        build.stream_handle(src),
+    )
+    build.check(lib, "warp_correlate_bwd", code)
+    build.count_launch(warp_correlate_wsum_bwd, src.dtype)
+    return dsrc, dref, dvw
+
+
+warp_correlate_wsum_bwd.launches = 0

@@ -1,13 +1,14 @@
 """Differentiable calls of the DCN and the warp-correlation.
 
 Each is a ``torch.autograd.Function`` whose forward is a forward kernel
-(K1 ``dcn_fused``, K5 ``dcn.deform_conv2d``, K2/K6 ``warp_correlate``)
-and whose backward is a backward kernel (K3 ``dcn_bwd``, K4
-``warp_correlate_bwd``, each in the forward's activation type). A CPU
-tensor takes each kernel's plain version through the same Function, so
-the glue below runs on the CPU too. Ported from ``transmvsnet_tpu/ops/
-pallas/vjp.py`` (``deform_conv2d_fused_with_vjp``,
-``deform_conv2d_with_vjp``, ``warp_correlate_with_vjp``).
+(K1 ``dcn_fused``, K5 ``dcn.deform_conv2d``, K2/K6 ``warp_correlate``, K7
+``warp_correlate_wsum``) and whose backward is a backward kernel (K3
+``dcn_bwd``, K4 ``warp_correlate_bwd``, each in the forward's activation
+type; K8 ``warp_correlate_wsum_bwd``). A CPU tensor takes each kernel's
+plain version through the same Function, so the glue below runs on the
+CPU too. Ported from ``transmvsnet_tpu/ops/pallas/vjp.py``
+(``deform_conv2d_fused_with_vjp``, ``deform_conv2d_with_vjp``,
+``warp_correlate_with_vjp``, ``warp_correlate_wsum_with_vjp``).
 
 - Fused DCN (bf16 activations; K1 with K3): the backward recomputes the
   27-channel offset/mask conv in float32 (the arithmetic of K1's own
@@ -27,6 +28,10 @@ pallas/vjp.py`` (``deform_conv2d_fused_with_vjp``,
 - Warp-correlation: gradients flow to the source and reference features
   only; projections and depth hypotheses get none (the reference builds
   the sample grid without a gradient).
+- The view-weighted warp-correlation sum (bf16 features; K7 with K8):
+  as the warp-correlation, plus the view weights' gradient, which K8
+  computes beside dsrc and dref and the Function returns only when the
+  weights need one (the model passes detached weights).
 """
 
 from __future__ import annotations
@@ -36,8 +41,11 @@ import torch
 from transmvsnet_tpu_torch.ops.cuda import dcn
 from transmvsnet_tpu_torch.ops.cuda.dcn_bwd import dcn_bwd
 from transmvsnet_tpu_torch.ops.cuda.dcn_fused import dcn_fused
-from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate
-from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import warp_correlate_bwd
+from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate, warp_correlate_wsum
+from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import (
+    warp_correlate_bwd,
+    warp_correlate_wsum_bwd,
+)
 from transmvsnet_tpu_torch.ops.dcn import offset_conv
 
 
@@ -114,6 +122,20 @@ class _WarpCorrelate(torch.autograd.Function):
         return dsrc.to(src.dtype), dref.to(ref.dtype), None, None, None
 
 
+class _WarpCorrelateWsum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, src, ref, src_proj, ref_proj, depth, vw):
+        ctx.save_for_backward(src, ref, src_proj, ref_proj, depth, vw)
+        return warp_correlate_wsum(src, ref, src_proj, ref_proj, depth, vw)
+
+    @staticmethod
+    def backward(ctx, g):
+        src, ref, src_proj, ref_proj, depth, vw = ctx.saved_tensors
+        dsrc, dref, dvw = warp_correlate_wsum_bwd(src, ref, src_proj, ref_proj, depth, vw, g)
+        dvw = dvw.to(vw.dtype) if ctx.needs_input_grad[5] else None
+        return dsrc.to(src.dtype), dref.to(ref.dtype), None, None, None, dvw
+
+
 def dcn_fused_with_vjp(
     x: torch.Tensor,
     k_off: torch.Tensor,
@@ -154,3 +176,19 @@ def warp_correlate_with_vjp(
     [B, S, C, H, W]; ref [B, C, H, W]; fused projections [B, S, 4, 4] and
     [B, 4, 4]; depth [B, D, H, W]. Returns [B, S, D, H, W] float32."""
     return _WarpCorrelate.apply(src, ref, src_proj, ref_proj, depth)
+
+
+def warp_correlate_wsum_with_vjp(
+    src: torch.Tensor,
+    ref: torch.Tensor,
+    src_proj: torch.Tensor,
+    ref_proj: torch.Tensor,
+    depth: torch.Tensor,
+    vw: torch.Tensor,
+) -> torch.Tensor:
+    """``warp_correlate_wsum`` with its gradient on CUDA: K7 forward, K8
+    backward (bf16 features). src [B, S, C, H, W]; ref [B, C, H, W]; fused
+    projections [B, S, 4, 4] and [B, 4, 4]; depth [B, D, H, W]; view
+    weights vw [B, S, H, W] float32. Returns sum_s vw_s * sim_s as
+    [B, D, H, W] float32 (the caller divides by the weights' sum)."""
+    return _WarpCorrelateWsum.apply(src, ref, src_proj, ref_proj, depth, vw)
