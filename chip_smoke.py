@@ -14,7 +14,8 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this repository's
    it; kernel and plain times by CUDA events. bf16: K1-K4 and the fused
    view sum's K7/K8 (stages 2-3); float32: K5, K6 and K3/K4's float
    instantiations; K5's bf16 instantiation (row 4, on no model path) at
-   the bf16 DCN shapes.
+   the bf16 DCN shapes. K3 is checked and timed at zero, 2-px and 6-px
+   offsets (see DCN_BWD_OFFSETS).
 4. Inference paths: the cascade at 1152x864, 5 views, batch 1, 48/32/8
    hypotheses, random weights from a seeded generator, in bfloat16, in
    float32 and in bfloat16 with the fused view sum; a few requests with
@@ -54,6 +55,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 # Peak operations per second by the kernel's arithmetic type, same source:
 # dense bf16 on the tensor cores; float32 on the CUDA cores (non-tensor).
 FLOPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TF32_FLOPS_PER_S = 495e12  # dense TF32 on the tensor cores, same source
 H, W, V, B = 864, 1152, 5, 1
 NDEPTHS = (48, 32, 8)
 NUM_HYP = 192
@@ -382,9 +384,39 @@ def check_all(got, want, rtol, atol_scale, what) -> dict:
             "scale": max(r["scale"] for r in results), "tolerance": results[0]["tolerance"]}
 
 
+# K3's offset regimes, in pixels (the standard deviation of random offsets):
+# zero (the reference's initial state: every tap on an integer), 2 px (some
+# taps off the image, a few corners beyond the kernel's dx window) and 6 px
+# (corners often beyond the window's 2-px halo: its global branch). Each is
+# checked; the time at 2 px is the kernel line's "ms", as in earlier runs.
+DCN_BWD_OFFSETS = (0.0, 2.0, 6.0)
+
+
+def dcn_bwd_bound(pix: int, C: int, c_out: int, x_bytes: int) -> dict:
+    """K3's least time, counted alike for both instantiations (both compute
+    in float32 from the activations): the two contractions (q = W^T g and
+    dw, 2 * 9 C C_out multiply-adds per pixel) on the tensor cores in
+    3xTF32, three TF32 products per float32 product, over the TF32 peak;
+    the sampling, the offset and mask sums and the scatter (~20 float32
+    operations per (tap, channel)) over the CUDA cores' float32 peak; the
+    bytes (each input read once, each output written once) over HBM
+    bandwidth. The two kinds of units run side by side: the bound is the
+    largest of the three."""
+    nbytes = (x_bytes * pix * C + 4 * pix * (3 * 9 + c_out)   # x, dy/dx/mask, g
+              + 4 * 9 * C * c_out                            # w
+              + 4 * pix * (C + 3 * 9) + 4 * 9 * C * c_out)   # dx, ddy/ddx/dm, dw
+    t = {"bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+         "contraction_ms": 1e3 * 3 * pix * 4 * 9 * C * c_out / TF32_FLOPS_PER_S,
+         "other_ms": 1e3 * pix * 9 * C * 20 / FLOPS_PER_S[torch.float32]}
+    t["ops_ms"] = max(t["contraction_ms"], t["other_ms"])
+    t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+    t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
+    return t
+
+
 def dcn_bwd_checks(dev, gen, dtype) -> dict:
     """K3's instantiation for ``dtype`` at every DCN shape of the training
-    path."""
+    path, checked at each of DCN_BWD_OFFSETS and timed at each."""
     from transmvsnet_tpu_torch.ops.cuda.dcn_bwd import dcn_bwd, dcn_bwd_plain
 
     name = "dcn_bwd" + suffix(dtype)
@@ -399,10 +431,8 @@ def dcn_bwd_checks(dev, gen, dtype) -> dict:
         mask = torch.rand(N, 9, h, w, generator=gen).to(dev)
         weight = rnd(9, C, c_out, s=0.1)
         g = rnd(N, c_out, h, w)
-        res = None
-        # Zero offsets (the reference's initial state: every tap on an
-        # integer) and offsets of a few pixels, some off the image.
-        for off_scale in (0.0, 2.0):
+        res, ms_at = {}, {}
+        for off_scale in DCN_BWD_OFFSETS:
             dy, dx = rnd(N, 9, h, w, s=off_scale), rnd(N, 9, h, w, s=off_scale)
             args = (x, dy, dx, mask, weight, g)
             got = dcn_bwd(*args)
@@ -410,30 +440,34 @@ def dcn_bwd_checks(dev, gen, dtype) -> dict:
             torch.cuda.synchronize()
             # Same float32 arithmetic on the same sample positions; sums
             # (and the atomics into dx and dw) in another order.
-            res = check_all(got, want, 1e-3, 1e-4, f"{name} {(N, C, h, w, c_out)} offsets {off_scale}")
+            res[off_scale] = check_all(got, want, 1e-3, 1e-4, f"{name} {(N, C, h, w, c_out)} offsets {off_scale}")
             if off_scale == 0.0 and not (got[1].abs().max() > 0 and got[2].abs().max() > 0):
                 raise AssertionError(f"{name}: zero offsets got no offset gradient (two-tap rule)")
             del got, want
-        ms = cuda_ms(lambda: dcn_bwd(*args), iters=5, warmup=1)
-        plain_ms = cuda_ms(lambda: dcn_bwd_plain(*args), iters=1, warmup=1)
-        pix = N * h * w
-        nbytes = (x.element_size() * pix * C + 4 * pix * (3 * 9 + c_out)  # x, dy/dx/mask, g
-                  + 4 * 9 * C * c_out                                     # w
-                  + 4 * pix * (C + 3 * 9) + 4 * 9 * C * c_out)            # dx, ddy/ddx/dm, dw
-        # q = W^T g and dw: 2 * 9 C C_out multiply-adds per pixel; sampling,
-        # offset and mask gradients and the scatter: ~20 operations per
-        # (tap, channel).
-        flops = pix * 9 * C * (4 * c_out + 20)
-        bd = bound(nbytes, flops, dtype)
+            ms_at[off_scale] = cuda_ms(lambda: dcn_bwd(*args), iters=5, warmup=1)
+            if off_scale == 2.0:
+                plain_ms = cuda_ms(lambda: dcn_bwd_plain(*args), iters=1, warmup=1)
+        worst = max(res.values(), key=lambda r: r["max_abs_err"])
+        bd = dcn_bwd_bound(N * h * w, C, c_out, x.element_size())
         rows.append(dict(path="train" + suffix(dtype), shape=[N, C, h, w, c_out], per_pass=per_step,
-                         ms=ms, plain_ms=plain_ms, **bd, **res))
-        print(f"{name} {[N, C, h, w, c_out]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
-              f"bound_ms {bd['bound_ms']:.4f} ({bd['bound_by']}) "
-              f"max_abs_err {res['max_abs_err']:.3g} at scale {res['scale']:.3g}", flush=True)
+                         ms=ms_at[2.0], ms_zero_offsets=ms_at[0.0], ms_large_offsets=ms_at[6.0],
+                         plain_ms=plain_ms, **bd, **worst))
+        print(f"{name} {[N, C, h, w, c_out]}: ms at offsets 0 / 2 / 6 px "
+              f"{ms_at[0.0]:.4f} / {ms_at[2.0]:.4f} / {ms_at[6.0]:.4f} plain_ms {plain_ms:.4f} "
+              f"bound_ms {bd['bound_ms']:.4f} ({bd['bound_by']}: bytes {bd['bytes_ms']:.4f}, "
+              f"contractions {bd['contraction_ms']:.4f}, other {bd['other_ms']:.4f}) "
+              f"max_abs_err {worst['max_abs_err']:.3g} at scale {worst['scale']:.3g}", flush=True)
         del x, mask, weight, g, args
         torch.cuda.empty_cache()
-    return summarise(name, "transmvsnet_tpu_torch/csrc/dcn_bwd.cu",
-                     "transmvsnet_tpu/ops/pallas/dcn_bwd.py:410", rows, "train" + suffix(dtype))
+    entry = summarise(name, "transmvsnet_tpu_torch/csrc/dcn_bwd.cu",
+                      "transmvsnet_tpu/ops/pallas/dcn_bwd.py:410", rows, "train" + suffix(dtype))
+    # Per step at each offset regime (each shape's time times its launches).
+    entry["ms_by_offsets"] = {f"{off:g}px": sum(r[key] * r["per_pass"] for r in rows)
+                              for off, key in zip(DCN_BWD_OFFSETS,
+                                                  ("ms_zero_offsets", "ms", "ms_large_offsets"))}
+    print(f"{name} per step: ms by offsets {json.dumps(entry['ms_by_offsets'])} "
+          f"bound {entry['bound_ms']:.4f} ({entry['bound_by']})", flush=True)
+    return entry
 
 
 def warp_bwd_checks(dev, gen, dtype) -> dict:

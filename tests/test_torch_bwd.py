@@ -75,12 +75,23 @@ def port_dcn_bwd(x, dy, dx, mask, w, g, dtype=torch.float32):
 DCN_NAMES = ("dx", "d_offset_y", "d_offset_x", "d_mask", "d_weight")
 
 
-@pytest.mark.parametrize("C,C_out,off", [(8, 16, 2.0), (32, 8, 2.0), (16, 32, 0.0)])
-def test_dcn_bwd_plain_matches_jax_xla_f32(C, C_out, off):
+@pytest.mark.parametrize(
+    "C,C_out,off,H,W",
+    [
+        pytest.param(8, 16, 2.0, 9, 11, id="8-16-2.0"),
+        pytest.param(32, 8, 2.0, 9, 11, id="32-8-2.0"),
+        pytest.param(16, 32, 0.0, 9, 11, id="16-32-0.0"),
+        pytest.param(32, 16, 6.0, 13, 37, id="32-16-6.0-13x37"),
+    ],
+)
+def test_dcn_bwd_plain_matches_jax_xla_f32(C, C_out, off, H, W):
     """Offsets of ~2 px (some taps off the 9x11 image), and zero offsets:
     every tap on an integer, where the floor rule (v_hi - v_lo) still gives
-    offset gradients, as the zero-initialised offset convs need."""
-    args = dcn_case(C=C, C_out=C_out, off=off)
+    offset gradients, as the zero-initialised offset convs need. And offsets
+    of ~6 px on a ragged 13x37 image: the regime whose corners leave the
+    CUDA kernel's tiles and their dx windows, where the card's checks hold
+    the kernel to this plain version."""
+    args = dcn_case(H=H, W=W, C=C, C_out=C_out, off=off)
     want = jax_dcn_vjp(*args)
     got = port_dcn_bwd(*args)
     for a, b, name in zip(got, want, DCN_NAMES):

@@ -331,6 +331,48 @@ def test_dcn_bwd_f32_matches_plain(dev, C, C_out, H, W, offsets):
     assert got[1].abs().max() > 0 and got[2].abs().max() > 0
 
 
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("C,C_out", [(32, 32), (32, 16), (32, 8)])
+@pytest.mark.parametrize("H,W,offsets", [(5, 7, 6.0), (37, 100, 0.0), (37, 100, 6.0), (21, 70, 20.0)])
+def test_dcn_bwd_tiles_and_halo_match_plain(dev, dtype, C, C_out, H, W, offsets):
+    """K3 at the (C, C_out) the model uses, in both instantiations, where
+    its tiles of 8 x 32 pixels and their dx windows (a halo of 2 px) are
+    cut: an image smaller than one tile (5 x 7), ragged images that span
+    many tiles (37 x 100: 5 x 4 tiles per image), and offsets of 6 and 20
+    px, whose corners leave the window and go to dx directly."""
+    from transmvsnet_tpu_torch.ops.cuda.dcn_bwd import dcn_bwd, dcn_bwd_plain
+
+    gen = torch.Generator().manual_seed(C_out * 7 + H + int(offsets))
+    x, dy, dx, mask, weight, _ = dcn_given_inputs(gen, dev, dtype, C, C_out, H, W, offsets, N=3)
+    g = torch.randn(3, C_out, H, W, generator=gen).to(dev)
+    attr = "launches_f32" if dtype == torch.float32 else "launches"
+    before = getattr(dcn_bwd, attr)
+    got = dcn_bwd(x, dy, dx, mask, weight, g)
+    torch.cuda.synchronize()
+    assert getattr(dcn_bwd, attr) == before + 1
+    want = dcn_bwd_plain(x, dy, dx, mask, weight, g)
+    for a, b, name in zip(got, want, ("dx", "d_offset_y", "d_offset_x", "d_mask", "d_weight")):
+        assert a.shape == b.shape and a.dtype == torch.float32, name
+        assert_close_f32(a, b, name)
+    assert got[1].abs().max() > 0 and got[2].abs().max() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_dcn_bwd_repeats_within_tolerance(dev, dtype):
+    """Two calls on the same inputs: the atomics into dx and dw land in
+    another order each time, so the results may differ, but only by
+    float32 summation order."""
+    from transmvsnet_tpu_torch.ops.cuda.dcn_bwd import dcn_bwd
+
+    gen = torch.Generator().manual_seed(31)
+    x, dy, dx, mask, weight, _ = dcn_given_inputs(gen, dev, dtype, 32, 32, 64, 96, 2.0, N=4)
+    g = torch.randn(4, 32, 64, 96, generator=gen).to(dev)
+    first = dcn_bwd(x, dy, dx, mask, weight, g)
+    second = dcn_bwd(x, dy, dx, mask, weight, g)
+    for a, b, name in zip(second, first, ("dx", "d_offset_y", "d_offset_x", "d_mask", "d_weight")):
+        assert_close_f32(a, b, name)
+
 @pytest.mark.parametrize("C", [8, 16, 32])
 @pytest.mark.parametrize("H,W", [(5, 9), (31, 47)])
 def test_warp_correlate_bwd_f32_matches_plain(dev, C, H, W):
