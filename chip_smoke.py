@@ -14,8 +14,10 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this repository's
    it; kernel and plain times by CUDA events. bf16: K1-K4 and the fused
    view sum's K7/K8 (stages 2-3); float32: K5, K6 and K3/K4's float
    instantiations; K5's bf16 instantiation (row 4, on no model path) at
-   the bf16 DCN shapes. K3 is checked and timed at zero, 2-px and 6-px
-   offsets (see DCN_BWD_OFFSETS).
+   the bf16 DCN shapes. K1 and K5 are checked (each also for bitwise
+   repeatability) and timed at three offset regimes (see
+   ``compare_dcn.FWD_REGIMES``), K1 beside the unfused bf16 route as a
+   yardstick; K3 at zero, 2-px and 6-px offsets (see DCN_BWD_OFFSETS).
 4. Inference paths: the cascade at 1152x864, 5 views, batch 1, 48/32/8
    hypotheses, random weights from a seeded generator, in bfloat16, in
    float32 and in bfloat16 with the fused view sum; a few requests with
@@ -194,58 +196,114 @@ def suffix(dtype: torch.dtype) -> str:
     return "_f32" if dtype == torch.float32 else ""
 
 
+def fwd_ms_by_offsets(rows: list, path: str) -> dict:
+    """Per pass of ``path`` at each offset regime: each shape's time times
+    its launches."""
+    from transmvsnet_tpu_torch.tools.compare_dcn import FWD_REGIMES
+
+    return {regime: sum(r["ms_by_offsets"][regime] * r["per_pass"] for r in rows if r["path"] == path)
+            for regime in FWD_REGIMES}
+
+
 def dcn_checks(dev, gen) -> dict:
-    from transmvsnet_tpu_torch.ops.cuda.dcn_fused import dcn_fused, dcn_fused_plain
+    """K1 at every DCN shape of both paths, checked and timed at each offset
+    regime of ``compare_dcn.FWD_REGIMES`` (zero; the inference paths'
+    offset convs; these checks' earlier 0.12 / 0.5, whose time is the
+    kernel line's "ms"). Beside it, as a yardstick the model does not run,
+    the unfused bf16 route: cuDNN's offset conv in bf16, the split into
+    offsets and masks, and K5's bf16 instantiation."""
+    from transmvsnet_tpu_torch.ops.cuda.dcn import deform_conv2d
+    from transmvsnet_tpu_torch.ops.dcn import offset_conv, split_offsets
+    from transmvsnet_tpu_torch.tools.compare_dcn import FWD_REGIMES, forward_inputs
 
     C = 32
     rows = []
     for path, (b, ph, pw) in PATHS.items():
         for h, w, c_out, per_pass in head_shapes(ph, pw):
             N = b * V
+            ms_at, unfused_at, res = {}, {}, {}
+            for regime in FWD_REGIMES:
+                fn, plain, args, _ = forward_inputs("dcn_fused", regime, gen, dev, N, h, w, c_out)
+                with torch.no_grad():
+                    got = fn(*args)
+                    want = plain(*args)
+                torch.cuda.synchronize()
+                # Both round one float32 result to bfloat16: at most one bf16
+                # step (2^-7 relative) apart, plus float32 summation-order noise.
+                res[regime] = check_close(got, want, rtol=2.0**-7, atol_scale=1e-3)
+                if res[regime]["n_outside"]:
+                    raise AssertionError(f"dcn_fused disagrees at {(N, C, h, w, c_out)} {regime}: {res[regime]}")
+                if not torch.equal(got, fn(*args)):
+                    raise AssertionError(f"dcn_fused is not bitwise repeatable at {(N, C, h, w, c_out)} {regime}")
+                del got, want
+                x, k_off, b_off, weight, bias = args
 
-            def rnd(*shape, s=1.0):
-                return (torch.randn(*shape, generator=gen) * s).to(dev)
+                def unfused():
+                    dy, dx, mask = split_offsets(offset_conv(x, k_off, b_off))
+                    return deform_conv2d(x, dy.float(), dx.float(), mask.float(), weight, bias)
 
-            x = rnd(N, C, h, w).to(torch.bfloat16)
-            # Offset-conv weights put offsets at a few pixels: non-integer,
-            # and some taps off the image at every border.
-            k_off = rnd(27, C, 3, 3, s=0.12)
-            b_off = rnd(27, s=0.5)
-            weight = rnd(9, C, c_out, s=0.1)
-            bias = rnd(c_out, s=0.1)
-            args = (x, k_off, b_off, weight, bias)
-            got = dcn_fused(*args)
-            want = dcn_fused_plain(*args)
-            torch.cuda.synchronize()
-            # Both round one float32 result to bfloat16: at most one bf16
-            # step (2^-7 relative) apart, plus float32 summation-order noise.
-            res = check_close(got, want, rtol=2.0**-7, atol_scale=1e-3)
-            if res["n_outside"]:
-                raise AssertionError(f"dcn_fused disagrees at {(N, C, h, w, c_out)}: {res}")
-            del got, want
-            ms = cuda_ms(lambda: dcn_fused(*args), iters=10)
-            plain_ms = cuda_ms(lambda: dcn_fused_plain(*args), iters=2, warmup=1)
+                with torch.no_grad():
+                    ms_at[regime] = cuda_ms(lambda: fn(*args), iters=10)
+                    unfused_at[regime] = cuda_ms(unfused, iters=10)
+                    if regime == "checks":
+                        plain_ms = cuda_ms(lambda: plain(*args), iters=2, warmup=1)
+                del x, args
             pix = N * h * w
             nbytes = 2 * pix * C + 2 * pix * c_out + 4 * (27 * C * 9 + 27 + 9 * C * c_out + c_out)
             flops = 2 * pix * 9 * C * (27 + c_out + 4)
             bd = bound(nbytes, flops, torch.bfloat16)
-            rows.append(dict(path=path, shape=[N, C, h, w, c_out], per_pass=per_pass, ms=ms,
-                             plain_ms=plain_ms, **bd, **res))
-            print(f"dcn_fused {path} {[N, C, h, w, c_out]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
-                  f"bound_ms {bd['bound_ms']:.4f} ({bd['bound_by']}) "
-                  f"max_abs_err {res['max_abs_err']:.3g}", flush=True)
-            del x, args
+            worst = max(res.values(), key=lambda r: r["max_abs_err"])
+            rows.append(dict(path=path, shape=[N, C, h, w, c_out], per_pass=per_pass, ms=ms_at["checks"],
+                             ms_by_offsets=ms_at, unfused_route_ms_by_offsets=unfused_at,
+                             plain_ms=plain_ms, **bd, **worst))
+            print(f"dcn_fused {path} {[N, C, h, w, c_out]}: ms by offsets "
+                  + " / ".join(f"{r} {v:.4f}" for r, v in ms_at.items())
+                  + " unfused route " + " / ".join(f"{v:.4f}" for v in unfused_at.values())
+                  + f" plain_ms {plain_ms:.4f} bound_ms {bd['bound_ms']:.4f} ({bd['bound_by']}) "
+                  f"max_abs_err {worst['max_abs_err']:.3g}", flush=True)
             torch.cuda.empty_cache()
-    return summarise("dcn_fused", "transmvsnet_tpu_torch/csrc/dcn_fused.cu",
-                     "transmvsnet_tpu/ops/pallas/dcn_onehot.py:610", rows, "inference")
+    entry = summarise("dcn_fused", "transmvsnet_tpu_torch/csrc/dcn_fused.cu",
+                      "transmvsnet_tpu/ops/pallas/dcn_onehot.py:610", rows, "inference")
+    entry["ms_by_offsets"] = fwd_ms_by_offsets(rows, "inference")
+    entry["unfused_route_ms_by_offsets"] = {
+        regime: sum(r["unfused_route_ms_by_offsets"][regime] * r["per_pass"] for r in rows if r["path"] == "inference")
+        for regime in entry["ms_by_offsets"]}
+    print(f"dcn_fused per forward: ms by offsets {json.dumps(entry['ms_by_offsets'])}; the unfused bf16 "
+          f"route (yardstick) {json.dumps(entry['unfused_route_ms_by_offsets'])}", flush=True)
+    return entry
+
+
+def dcn_fwd_bound(pix: int, C: int, c_out: int, dtype: torch.dtype) -> dict:
+    """K5's least time, counted as ``dcn_bwd_bound`` counts K3's: the
+    contraction (9 C C_out multiply-adds per pixel) on the tensor cores with
+    split operands, three products each, over the TF32 (float32) or bf16
+    peak; the bilinear samples (4 multiply-adds per (tap, channel)) over the
+    CUDA cores' float32 peak; the bytes (x and the output in the activation
+    type, the float32 offsets, mask, weight and bias, each once) over HBM
+    bandwidth. The two kinds of units run side by side: the bound is the
+    largest of the three."""
+    es = torch.tensor([], dtype=dtype).element_size()
+    nbytes = es * pix * (C + c_out) + 4 * pix * 27 + 4 * (9 * C * c_out + c_out)
+    peak = TF32_FLOPS_PER_S if dtype == torch.float32 else FLOPS_PER_S[torch.bfloat16]
+    t = {"bytes_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
+         "contraction_ms": 1e3 * 3 * 2 * pix * 9 * C * c_out / peak,
+         "other_ms": 1e3 * 2 * pix * 9 * C * 4 / FLOPS_PER_S[torch.float32]}
+    t["ops_ms"] = max(t["contraction_ms"], t["other_ms"])
+    t["bound_ms"] = max(t["bytes_ms"], t["ops_ms"])
+    t["bound_by"] = "bytes" if t["bytes_ms"] >= t["ops_ms"] else "operations"
+    return t
 
 
 def dcn_given_checks(dev, gen, dtype) -> dict:
     """K5 (DCN with given offsets and mask) in one activation type at every
-    DCN shape of both paths. float32 is the float32 paths' DCN (row 5);
-    bf16 is row 4, which no model path runs (the bf16 layers take K1): its
-    figures are for the nine DCN layers of a bf16 forward, 0 launches."""
-    from transmvsnet_tpu_torch.ops.cuda.dcn import deform_conv2d, deform_conv2d_plain
+    DCN shape of both paths, checked and timed at each offset regime of
+    ``compare_dcn.FWD_REGIMES`` (zero and the inference paths' offsets and
+    masks from those offset convs; random 1.5-px offsets and masks in
+    (0, 1), the earlier regime and the kernel line's "ms"). float32 is the
+    float32 paths' DCN (row 5); bf16 is row 4, which no model path runs
+    (the bf16 layers take K1): its figures are for the nine DCN layers of a
+    bf16 forward, 0 launches."""
+    from transmvsnet_tpu_torch.tools.compare_dcn import FWD_REGIMES, forward_inputs
 
     name = "dcn_f32" if dtype == torch.float32 else "dcn_bf16"
     C = 32
@@ -253,52 +311,47 @@ def dcn_given_checks(dev, gen, dtype) -> dict:
     for path, (b, ph, pw) in PATHS.items():
         for h, w, c_out, per_pass in head_shapes(ph, pw):
             N = b * V
-
-            def rnd(*shape, s=1.0):
-                return (torch.randn(*shape, generator=gen) * s).to(dev)
-
-            x = rnd(N, C, h, w).to(dtype)
-            # Offsets of about a pixel and a half, non-integer, some taps
-            # off the image at every border; masks in (0, 1).
-            dy, dx = rnd(N, 9, h, w, s=1.5), rnd(N, 9, h, w, s=1.5)
-            mask = torch.rand(N, 9, h, w, generator=gen).to(dev)
-            weight = rnd(9, C, c_out, s=0.1)
-            bias = rnd(c_out, s=0.1)
-            args = (x, dy, dx, mask, weight, bias)
-            got = deform_conv2d(*args)
-            want = deform_conv2d_plain(*args)
-            torch.cuda.synchronize()
-            if dtype == torch.bfloat16:
-                # Both round one float32 result to bfloat16: one bf16 step
-                # (2^-7 relative) apart at most, plus summation-order noise.
-                res = check_close(got, want, rtol=2.0**-7, atol_scale=1e-3)
-            else:
-                # Float32 on both sides, summed in another order.
-                res = check_close(got, want, rtol=1e-4, atol_scale=1e-4)
-            if res["n_outside"]:
-                raise AssertionError(f"{name} disagrees at {(N, C, h, w, c_out)}: {res}")
-            del got, want
-            ms = cuda_ms(lambda: deform_conv2d(*args), iters=10)
-            plain_ms = cuda_ms(lambda: deform_conv2d_plain(*args), iters=2, warmup=1)
-            pix, es = N * h * w, x.element_size()
-            # x and the output in the activation type; offsets, mask,
-            # weight and bias float32.
-            nbytes = es * pix * (C + c_out) + 4 * pix * 27 + 4 * (9 * C * c_out + c_out)
-            # Per (pixel, tap, channel): the contraction (C_out
-            # multiply-adds) and the bilinear sample (~4).
-            flops = 2 * pix * 9 * C * (c_out + 4)
-            bd = bound(nbytes, flops, dtype)
+            ms_at, res = {}, {}
+            for regime in FWD_REGIMES:
+                fn, plain, args, _ = forward_inputs(name, regime, gen, dev, N, h, w, c_out)
+                with torch.no_grad():
+                    got = fn(*args)
+                    want = plain(*args)
+                torch.cuda.synchronize()
+                if dtype == torch.bfloat16:
+                    # Both round one float32 result to bfloat16: one bf16 step
+                    # (2^-7 relative) apart at most, plus summation-order noise.
+                    res[regime] = check_close(got, want, rtol=2.0**-7, atol_scale=1e-3)
+                else:
+                    # Float32 on both sides, summed in another order.
+                    res[regime] = check_close(got, want, rtol=1e-4, atol_scale=1e-4)
+                if res[regime]["n_outside"]:
+                    raise AssertionError(f"{name} disagrees at {(N, C, h, w, c_out)} {regime}: {res[regime]}")
+                if not torch.equal(got, fn(*args)):
+                    raise AssertionError(f"{name} is not bitwise repeatable at {(N, C, h, w, c_out)} {regime}")
+                del got, want
+                with torch.no_grad():
+                    ms_at[regime] = cuda_ms(lambda: fn(*args), iters=10)
+                    if regime == "checks":
+                        plain_ms = cuda_ms(lambda: plain(*args), iters=2, warmup=1)
+                del args
+            bd = dcn_fwd_bound(N * h * w, C, c_out, dtype)
+            worst = max(res.values(), key=lambda r: r["max_abs_err"])
             rows.append(dict(path=path + suffix(dtype), shape=[N, C, h, w, c_out], per_pass=per_pass,
-                             ms=ms, plain_ms=plain_ms, **bd, **res))
-            print(f"{name} {path} {[N, C, h, w, c_out]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
-                  f"bound_ms {bd['bound_ms']:.4f} ({bd['bound_by']}) "
-                  f"max_abs_err {res['max_abs_err']:.3g}", flush=True)
-            del x, dy, dx, mask, args
+                             ms=ms_at["checks"], ms_by_offsets=ms_at, plain_ms=plain_ms, **bd, **worst))
+            print(f"{name} {path} {[N, C, h, w, c_out]}: ms by offsets "
+                  + " / ".join(f"{r} {v:.4f}" for r, v in ms_at.items())
+                  + f" plain_ms {plain_ms:.4f} bound_ms {bd['bound_ms']:.4f} ({bd['bound_by']}: bytes "
+                  f"{bd['bytes_ms']:.4f}, contraction {bd['contraction_ms']:.4f}, samples {bd['other_ms']:.4f}) "
+                  f"max_abs_err {worst['max_abs_err']:.3g}", flush=True)
             torch.cuda.empty_cache()
     replaces = ("transmvsnet_tpu/ops/pallas/dcn_rowsweep.py:219" if dtype == torch.float32
                 else "transmvsnet_tpu/ops/pallas/dcn_onehot.py:716")
-    return summarise(name, "transmvsnet_tpu_torch/csrc/dcn.cu", replaces, rows,
-                     "inference" + suffix(dtype))
+    entry = summarise(name, "transmvsnet_tpu_torch/csrc/dcn.cu", replaces, rows, "inference" + suffix(dtype))
+    entry["ms_by_offsets"] = fwd_ms_by_offsets(rows, "inference" + suffix(dtype))
+    print(f"{name} per forward: ms by offsets {json.dumps(entry['ms_by_offsets'])} "
+          f"bound {entry['bound_ms']:.4f} ({entry['bound_by']})", flush=True)
+    return entry
 
 
 # (stage, C, D) of the three plane sweeps.

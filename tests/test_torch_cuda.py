@@ -373,6 +373,107 @@ def test_dcn_bwd_repeats_within_tolerance(dev, dtype):
     for a, b, name in zip(second, first, ("dx", "d_offset_y", "d_offset_x", "d_mask", "d_weight")):
         assert_close_f32(a, b, name)
 
+
+# The forward kernels' tiled body (csrc/dcn_fwd.cuh): K1, and K5 in each
+# activation type. Offsets of about 0, 1.5 and 20 px: at 20 px the corners
+# of a tile span more of a 33 x 70 image than the staged box holds, so the
+# box is cut and the corners outside it are gathered from device memory.
+FWD_KERNELS = ["k1", "k5_f32", "k5_bf16"]
+FWD_OFFSETS = [0.0, 1.5, 20.0]
+
+
+def dcn_fwd_call(kernel, gen, dev, C, C_out, H, W, offsets, N=2):
+    """(kernel wrapper, plain version, args, launch counter attribute) for
+    one forward kernel at offsets of about ``offsets`` px; K1's come from
+    its offset conv (weights and biases scaled so), K5's are given."""
+    from transmvsnet_tpu_torch.ops.cuda.dcn import deform_conv2d, deform_conv2d_plain
+    from transmvsnet_tpu_torch.ops.cuda.dcn_fused import dcn_fused, dcn_fused_plain
+
+    if kernel == "k1":
+        x = torch.randn(N, C, H, W, generator=gen).to(dev, torch.bfloat16)
+        k_off = (torch.randn(27, C, 3, 3, generator=gen) * offsets / (9 * C) ** 0.5).to(dev)
+        b_off = (torch.randn(27, generator=gen) * offsets / 2).to(dev)
+        weight = (torch.randn(9, C, C_out, generator=gen) * 0.1).to(dev)
+        bias = (torch.randn(C_out, generator=gen) * 0.1).to(dev)
+        return dcn_fused, dcn_fused_plain, (x, k_off, b_off, weight, bias), "launches"
+    dtype = torch.float32 if kernel == "k5_f32" else torch.bfloat16
+    args = dcn_given_inputs(gen, dev, dtype, C, C_out, H, W, offsets, N=N)
+    return deform_conv2d, deform_conv2d_plain, args, "launches_f32" if dtype == torch.float32 else "launches"
+
+
+@pytest.mark.parametrize("offsets", FWD_OFFSETS)
+@pytest.mark.parametrize("H,W", [(7, 13), (33, 70), (9, 65)])
+@pytest.mark.parametrize("C_out", [8, 16, 32])
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("kernel", FWD_KERNELS)
+def test_dcn_fwd_tiles_and_box_match_plain(dev, kernel, C, C_out, H, W, offsets):
+    """Every (C, C_out), ragged tiles (no size is a multiple of 8 x 32),
+    batch 2, at the existing tolerances."""
+    gen = torch.Generator().manual_seed(C * 1000 + C_out * 10 + H + int(offsets))
+    fn, plain, args, attr = dcn_fwd_call(kernel, gen, dev, C, C_out, H, W, offsets)
+    before = getattr(fn, attr)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert getattr(fn, attr) == before + 1
+    assert got.shape == (2, C_out, H, W) and got.dtype == args[0].dtype
+    want = plain(*args)
+    if got.dtype == torch.bfloat16:
+        assert_close_bf16(got, want)
+    else:
+        assert_close_f32(got, want, "out")
+
+
+# Offsets of hundreds of pixels, all downwards and spread along x over
+# +-1000 px: a tile's corners lie far below it and span more than the box
+# holds, so the box is cut to the tile widened on each side. For most
+# tiles the cut box then holds none of the corners (K5 float32's, the
+# smallest, at 500 px; every kernel's at 820 px), and every corner is
+# gathered from device memory.
+@pytest.mark.parametrize("far", [500.0, 820.0])
+@pytest.mark.parametrize("kernel", FWD_KERNELS)
+def test_dcn_fwd_far_offsets_match_plain(dev, kernel, far):
+    from transmvsnet_tpu_torch.ops.cuda.dcn import deform_conv2d, deform_conv2d_plain
+    from transmvsnet_tpu_torch.ops.cuda.dcn_fused import dcn_fused, dcn_fused_plain
+
+    H, W, C, spread = 864, 2048, 32, 1000.0
+    gen = torch.Generator().manual_seed(int(far))
+    dtype = torch.float32 if kernel == "k5_f32" else torch.bfloat16
+    x = torch.randn(1, C, H, W, generator=gen).to(dev, dtype)
+    weight = (torch.randn(9, C, C, generator=gen) * 0.1).to(dev)
+    bias = (torch.randn(C, generator=gen) * 0.1).to(dev)
+    if kernel == "k1":
+        # Per tap, dy = far and dx from -spread to +spread, plus the conv's
+        # ~0.3 px per pixel.
+        k_off = (torch.randn(27, C, 3, 3, generator=gen) * 0.02).to(dev)
+        b_off = torch.randn(27, generator=gen)
+        b_off[0:18:2] = far
+        b_off[1:18:2] = spread * (torch.arange(9.0) - 4) / 4
+        fn, plain, args = dcn_fused, dcn_fused_plain, (x, k_off, b_off.to(dev), weight, bias)
+    else:
+        dy = (far + torch.randn(1, 9, H, W, generator=gen) * 0.5).to(dev)
+        dx = ((torch.rand(1, 9, H, W, generator=gen) * 2 - 1) * spread).to(dev)
+        mask = torch.rand(1, 9, H, W, generator=gen).to(dev)
+        fn, plain, args = deform_conv2d, deform_conv2d_plain, (x, dy, dx, mask, weight, bias)
+    got = fn(*args)
+    want = plain(*args)
+    if dtype == torch.bfloat16:
+        assert_close_bf16(got, want)
+    else:
+        assert_close_f32(got, want, "out")
+    # The rows whose corners reach the image are not just the bias.
+    assert (want[:, :, :40].float() - bias.view(1, -1, 1, 1)).abs().amax() > 0.5
+
+
+@pytest.mark.parametrize("kernel", FWD_KERNELS)
+def test_dcn_fwd_is_bitwise_repeatable(dev, kernel):
+    """No atomics in the forward body: two launches give the same bits."""
+    gen = torch.Generator().manual_seed(41)
+    fn, _, args, _ = dcn_fwd_call(kernel, gen, dev, 32, 32, 64, 96, 2.0, N=4)
+    first = fn(*args)
+    second = fn(*args)
+    assert torch.equal(first, second)
+
+
 @pytest.mark.parametrize("C", [8, 16, 32])
 @pytest.mark.parametrize("H,W", [(5, 9), (31, 47)])
 def test_warp_correlate_bwd_f32_matches_plain(dev, C, H, W):

@@ -155,3 +155,20 @@ class TestKernelChecks:
         a[3] = a[3][:, :16]
         with pytest.raises(ValueError, match="weight"):
             k1._check(*a)
+
+    def test_refuses_sides_beyond_16_bits(self):
+        """K1 and K5 pack a sample's floor corner into 16-bit halves, so
+        both wrappers refuse H or W above 32766 and take 32766."""
+        from transmvsnet_tpu_torch.ops.cuda import dcn as k5
+
+        for W, ok in ((k5.MAX_SIDE, True), (k5.MAX_SIDE + 1, False)):
+            x = torch.zeros(1, 8, 1, W, dtype=torch.bfloat16)
+            k1_args = (x, torch.zeros(27, 8, 3, 3), torch.zeros(27), torch.zeros(9, 8, 8), torch.zeros(8))
+            plane = torch.zeros(1, 9, 1, W)
+            k5_args = (x, plane, plane, plane, torch.zeros(9, 8, 8), torch.zeros(8))
+            for check, args in ((k1._check, k1_args), (k5._check, k5_args)):
+                if ok:
+                    assert check(*args) == (1, 8, 1, W, 8)
+                else:
+                    with pytest.raises(ValueError, match="32766"):
+                        check(*args)

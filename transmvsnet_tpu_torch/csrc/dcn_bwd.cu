@@ -83,7 +83,11 @@
 
 #include <cstdint>
 
+#include "dcn_fwd.cuh"
+
 namespace {
+
+using namespace dcn;  // load, copy_async, Split, mma_3xtf32, sample_at: shared with K1/K5
 
 constexpr int kTaps = 9;
 constexpr int kTileY = 8, kTileX = 32;  // output pixels per tile: a warp per row
@@ -116,95 +120,6 @@ struct Smem {
   static constexpr size_t bytes = 4 * (size_t)lj + 2 * kCap * kCells;
   static_assert(g % 4 == 0 && x % 4 == 0, "16-byte alignment");
 };
-
-__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-// Copies BYTES from global to shared memory without the issuing thread
-// waiting: the first SRC_BYTES are read, the rest is zero.
-template <int BYTES>
-__device__ __forceinline__ void copy_async(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src), "n"(BYTES), "r"(src_bytes)
-               : "memory");
-}
-
-// Waits for this thread's asynchronous copies.
-__device__ __forceinline__ void copy_async_wait() {
-  asm volatile("cp.async.wait_all;" ::: "memory");
-}
-
-// d += a . b for one m16n8k8 tile in TF32, float32 sums.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
-      "{%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// A float32 fragment of N values split into TF32 head and tail: the head is
-// x cut to TF32 (its low 13 bits cleared), the tail the exact rest, which the
-// tensor core cuts to TF32 in turn; x = hi + lo up to ~2^-20 |x|. (A bit mask
-// where cvt.rna.tf32 would round: the conversion runs at a quarter of the
-// rate and cost more than the products.)
-template <int N>
-struct Split {
-  unsigned hi[N], lo[N];
-  __device__ __forceinline__ explicit Split(const float (&x)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      hi[i] = __float_as_uint(x[i]) & 0xffffe000u;
-      lo[i] = __float_as_uint(x[i] - __uint_as_float(hi[i]));
-    }
-  }
-};
-
-// d += a . b in 3xTF32: the tails' products first, the heads' last; the
-// tail-by-tail product (~2^-20 relative) is left out.
-__device__ __forceinline__ void mma_3xtf32(float (&d)[4], const Split<4>& a, const Split<2>& b) {
-  mma_tf32(d, a.lo, b.hi);
-  mma_tf32(d, a.hi, b.lo);
-  mma_tf32(d, a.hi, b.hi);
-}
-
-// One bilinear sample: the floor corner, corner validity, fractional
-// weights, clamped indices.
-struct Sample {
-  bool v00, v01, v10, v11;
-  float wx, wy;
-  int y0, x0;
-  long long i00, i01, i10, i11;
-};
-
-// Clamped before the int cast, as the forward kernel and the plain sampler
-// are: anything beyond [-2, size+1] has no valid corner.
-__device__ __forceinline__ Sample sample_at(float py, float px, int H, int W) {
-  Sample s;
-  const float fy = floorf(py), fx = floorf(px);
-  s.wy = py - fy;
-  s.wx = px - fx;
-  const int y0 = (int)fminf(fmaxf(fy, -2.f), (float)H + 1.f);
-  const int x0 = (int)fminf(fmaxf(fx, -2.f), (float)W + 1.f);
-  const int y1 = y0 + 1, x1 = x0 + 1;
-  s.y0 = y0;
-  s.x0 = x0;
-  const bool vy0 = y0 >= 0 && y0 < H, vy1 = y1 >= 0 && y1 < H;
-  const bool vx0 = x0 >= 0 && x0 < W, vx1 = x1 >= 0 && x1 < W;
-  s.v00 = vy0 && vx0;
-  s.v01 = vy0 && vx1;
-  s.v10 = vy1 && vx0;
-  s.v11 = vy1 && vx1;
-  const int cy0 = min(max(y0, 0), H - 1), cy1 = min(max(y1, 0), H - 1);
-  const int cx0 = min(max(x0, 0), W - 1), cx1 = min(max(x1, 0), W - 1);
-  s.i00 = (long long)cy0 * W + cx0;
-  s.i01 = (long long)cy0 * W + cx1;
-  s.i10 = (long long)cy1 * W + cx0;
-  s.i11 = (long long)cy1 * W + cx1;
-  return s;
-}
 
 // Step 1: s_q[c][p] = sum_o W_k[c][o] G[o][p]. Warp w computes the pixel
 // columns of n8 tiles w and w + 16 for every m16 tile of channels.

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by its own
 ``nvcc`` process (all started together) into ``build/kernels/<name>-<hash>.so``
 at the repository root, then loaded with ``ctypes``. The hash covers the
-source and the flags, so an edited source is rebuilt and an unchanged one
-is reused.
+source, every header under ``csrc`` (``*.cuh``, which a source may
+include) and the flags, so an edited source or header is rebuilt and an
+unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -41,7 +42,11 @@ def _nvcc() -> str:
 
 
 def _target(src: pathlib.Path) -> pathlib.Path:
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"{src.stem}-{digest[:12]}.so"
 
 

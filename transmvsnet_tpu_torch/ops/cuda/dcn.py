@@ -21,6 +21,7 @@ from transmvsnet_tpu_torch.ops.cuda import build
 
 SUPPORTED_CHANNELS = (8, 16, 32)
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
+MAX_SIDE = 32766  # the kernel packs a sample's floor corner into 16-bit halves
 
 
 def deform_conv2d_plain(
@@ -64,6 +65,8 @@ def _check(x, offset_y, offset_x, mask, weight, bias) -> tuple[int, int, int, in
             raise ValueError(f"dcn: inputs on {t.device} and {x.device}")
     if N * C * H * W >= 2**31:
         raise ValueError("dcn: N*C*H*W must fit in 32 bits")
+    if max(H, W) > MAX_SIDE:
+        raise ValueError(f"dcn kernel takes H, W <= {MAX_SIDE}, got {H}, {W}")
     return N, C, H, W, C_out
 
 

@@ -13,6 +13,7 @@ import ctypes
 import torch
 
 from transmvsnet_tpu_torch.ops.cuda import build
+from transmvsnet_tpu_torch.ops.cuda.dcn import MAX_SIDE
 from transmvsnet_tpu_torch.ops.dcn import deform_conv2d, offset_conv, split_offsets
 
 SUPPORTED_CHANNELS = (8, 16, 32)
@@ -53,6 +54,8 @@ def _check(x, k_off, b_off, weight, bias) -> tuple[int, int, int, int, int]:
             raise ValueError(f"dcn_fused: parameters on {t.device}, activations on {x.device}")
     if B * H * W >= 2**31:
         raise ValueError("dcn_fused: B*H*W must fit in 32 bits")
+    if max(H, W) > MAX_SIDE:
+        raise ValueError(f"dcn_fused kernel takes H, W <= {MAX_SIDE}, got {H}, {W}")
     return B, C, H, W, C_out
 
 

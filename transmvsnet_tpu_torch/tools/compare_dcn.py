@@ -1,0 +1,406 @@
+"""Time the DCN kernels (K1 ``csrc/dcn_fused.cu``, K5 ``csrc/dcn.cu`` and K3
+``csrc/dcn_bwd.cu``) against another build of the same sources, on one card,
+in turns: typically the kernels of an earlier commit.
+
+    git archive <commit> transmvsnet_tpu_torch/csrc | tar -x -C build/baseline
+    python -m transmvsnet_tpu_torch.tools.compare_dcn \\
+        --baseline build/baseline/transmvsnet_tpu_torch/csrc [--steps] [--forwards]
+
+The baseline directory holds the other sources (and any header they
+include); each exports the C entry point that the wrappers in ``ops/cuda/``
+call, so the baseline runs under the same wrappers, with the libraries that
+they call swapped.
+
+1. Kernels, each build first held to the plain version on the same inputs
+   (the tolerances of ``chip_smoke.py``), then timed by CUDA events in turns
+   (baseline, this tree, this tree, baseline):
+   - K1 (bf16) and K5 (float32 and bf16) at the five DCN shapes of the
+     inference path (5 views at 1152x864) and of the training path (2
+     batches x 5 views at 512x640), at three offset regimes (see
+     ``FWD_REGIMES``);
+   - K3 (bf16 and float32) at the training shapes, at zero offsets, random
+     offsets of 0.01 px (off the integers, as the zero-initialised offset
+     convs are after a few steps) and of 2 px.
+   ms per shape, and per pass: each shape's ms times its launches per
+   forward (inference) or per step (training).
+2. ``--steps``: the training step at the DTU recipe in bf16, float32 and bf16
+   with the fused view sum, from seeded random weights, with each build in
+   turns (a few steps each, in PyTorch's default arithmetic as the train CLI
+   runs): ms per step split into forward (with the loss), backward and
+   optimizer.
+3. ``--forwards``: the inference forward at 1152x864, 5 views, in bf16 and
+   float32 (offset convs with random weights, as ``chip_smoke.py`` sets
+   them), with each build in turns: ms per depth map.
+
+Prints one JSON line per phase, each with the card's name and power limit;
+``--no-kernels`` skips phase 1 (to time only the passes in a shorter run).
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import ctypes
+import hashlib
+import json
+import pathlib
+import subprocess
+
+import torch
+
+# The libraries a build provides: the wrappers' names for csrc/<name>.cu.
+LIBRARIES = ("dcn_fused", "dcn", "dcn_bwd")
+C, V = 32, 5
+# (batch, height, width) of each path that runs the DCN kernels.
+PATHS = {"inference": (1, 864, 1152), "train": (2, 512, 640)}
+# Forward offset regimes: the offset conv's (weight, bias) scales. "zero":
+# the training path's initial state, every tap on an integer; "inference":
+# what chip_smoke.py's inference paths set (offsets of a pixel or two,
+# nearly constant per tap); "checks": larger per-pixel spread (K1's conv
+# 0.12 / 0.5; K5 given random offsets of 1.5 px and masks in (0, 1)). K5's
+# other regimes take the offsets and masks of the same conv.
+FWD_REGIMES = {"zero": (0.0, 0.0), "inference": (0.05, 1.5), "checks": (0.12, 0.5)}
+FWD_KERNELS = ("dcn_fused", "dcn_f32", "dcn_bf16")
+BWD_OFFSETS = (0.0, 0.01, 2.0)  # standard deviation of K3's random offsets, in pixels
+ROUNDS = 2       # pairs of turns: baseline, this tree, this tree, baseline
+ITERS = 5        # kernel calls timed per turn
+TRAIN_STEPS = 3  # training steps timed per turn
+REQUESTS = 3     # inference forwards timed per turn
+
+
+def head_shapes(h: int, w: int) -> list[tuple[int, int, int, int]]:
+    """(h, w, C_out, launches per pass) of the ARF heads' nine DCN layers
+    for input images of h x w."""
+    return [(h // 4, w // 4, 32, 3), (h // 2, w // 2, 32, 2), (h // 2, w // 2, 16, 1),
+            (h, w, 32, 2), (h, w, 8, 1)]
+
+
+def forward_inputs(kernel: str, regime: str, gen, dev, N: int, h: int, w: int, c_out: int):
+    """(wrapper, plain version, arguments, (rtol, atol_scale)) of one
+    forward kernel ("dcn_fused", "dcn_f32" or "dcn_bf16") at one shape and
+    regime, C = 32 channels in."""
+    from transmvsnet_tpu_torch.ops.cuda.dcn import deform_conv2d, deform_conv2d_plain
+    from transmvsnet_tpu_torch.ops.cuda.dcn_fused import dcn_fused, dcn_fused_plain
+    from transmvsnet_tpu_torch.ops.dcn import offset_conv, split_offsets
+
+    def rnd(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen) * s).to(dev)
+
+    dtype = torch.float32 if kernel == "dcn_f32" else torch.bfloat16
+    x = rnd(N, C, h, w).to(dtype)
+    k_scale, b_scale = FWD_REGIMES[regime]
+    k_off, b_off = rnd(27, C, 3, 3, s=k_scale), rnd(27, s=b_scale)
+    weight, bias = rnd(9, C, c_out, s=0.1), rnd(c_out, s=0.1)
+    # Both sides round one float32 result to bf16 (one bf16 step apart at
+    # most, plus summation-order noise), or both are float32.
+    tol = (2.0**-7, 1e-3) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+    if kernel == "dcn_fused":
+        return dcn_fused, dcn_fused_plain, (x, k_off, b_off, weight, bias), tol
+    if regime == "checks":
+        dy, dx = rnd(N, 9, h, w, s=1.5), rnd(N, 9, h, w, s=1.5)
+        mask = torch.rand(N, 9, h, w, generator=gen).to(dev)
+    else:
+        dy, dx, mask = (t.contiguous() for t in split_offsets(offset_conv(x.float(), k_off, b_off)))
+    return deform_conv2d, deform_conv2d_plain, (x, dy, dx, mask, weight, bias), tol
+
+
+def outside(got, want, rtol: float, atol_scale: float) -> int:
+    """Elements with |got - want| > rtol |want| + atol_scale max|want|."""
+    got, want = got.float(), want.float()
+    return int(((got - want).abs() > rtol * want.abs() + atol_scale * want.abs().max()).sum())
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Time K1, K5 and K3 against another build of their sources")
+    p.add_argument("--baseline", required=True, help="directory of the other dcn_fused.cu, dcn.cu, dcn_bwd.cu")
+    p.add_argument("--steps", action="store_true", help="also time the training steps in turns")
+    p.add_argument("--forwards", action="store_true", help="also time the inference forwards in turns")
+    p.add_argument("--no-kernels", action="store_true", help="skip phase 1 (with --steps or --forwards)")
+    return p.parse_args(argv)
+
+
+def build_baseline(src_dir: pathlib.Path) -> dict:
+    """Compile the three sources of ``src_dir`` with the port's nvcc flags
+    into build/kernels, all at once; name -> loaded library."""
+    from transmvsnet_tpu_torch.ops.cuda import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sorted(src_dir.glob("*.cu*")))).hexdigest()[:12]
+    jobs = {}
+    for name in LIBRARIES:
+        target = build.BUILD_DIR / f"baseline-{name}-{digest}.so"
+        proc = None
+        if not target.exists():
+            cmd = [build._nvcc(), *build.NVCC_FLAGS, "-o", str(target), str(src_dir / f"{name}.cu")]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (target, proc)
+    libs = {}
+    for name, (target, proc) in jobs.items():
+        if proc is not None:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src_dir / name}.cu:\n{out}")
+        libs[name] = ctypes.CDLL(str(target))
+    return libs
+
+
+@contextlib.contextmanager
+def using(libs: dict):
+    """The wrappers in ``ops/cuda/`` call ``libs`` inside the block."""
+    from transmvsnet_tpu_torch.ops.cuda import build
+
+    own = {name: build.library(name) for name in libs}
+    build._libraries.update(libs)
+    try:
+        yield
+    finally:
+        build._libraries.update(own)
+
+
+def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+    for _ in range(warmup):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def in_turns(builds: dict, fn) -> dict:
+    """fn() with each build's libraries, in turns (baseline, this, this,
+    baseline, ...); each entry lists its rounds' results."""
+    out = {name: [] for name in builds}
+    order = list(builds)
+    for r in range(2 * ROUNDS):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            with using(builds[name]):
+                out[name].append(fn())
+    return out
+
+
+def per_pass(rows: list, keys) -> dict:
+    """Sum over shapes of ms times launches per pass, per group of rows
+    (the values of ``keys``) and build; with this tree over the baseline."""
+    out: dict = {}
+    for r in rows:
+        key = "_".join(str(r[k]) for k in keys)
+        for name, ms in r["ms"].items():
+            out.setdefault(key, {}).setdefault(name, 0.0)
+            out[key][name] += ms * r["per_pass"]
+    for v in out.values():
+        v["this_over_baseline"] = v["this"] / v["baseline"]
+    return out
+
+
+def check_builds(builds: dict, fn, args, want, tol, what: str) -> None:
+    for name, libs in builds.items():
+        with using(libs):
+            got = fn(*args)
+        bad = outside(got, want, *tol)
+        if bad:
+            raise AssertionError(f"{name} disagrees with the plain version at {what}: {bad} outside")
+
+
+def forward_phase(builds: dict, dev) -> dict:
+    gen = torch.Generator().manual_seed(1)
+    rows = []
+    for kernel in FWD_KERNELS:
+        for path, (b, ph, pw) in PATHS.items():
+            for h, w, c_out, launches in head_shapes(ph, pw):
+                for regime in FWD_REGIMES:
+                    N = b * V
+                    fn, plain, args, tol = forward_inputs(kernel, regime, gen, dev, N, h, w, c_out)
+                    with torch.no_grad():
+                        check_builds(builds, fn, args, plain(*args), tol, f"{kernel} {path} {[N, C, h, w, c_out]} {regime}")
+                        ms = in_turns(builds, lambda: cuda_ms(lambda: fn(*args), ITERS))
+                    row = {"kernel": kernel, "path": path, "regime": regime, "shape": [N, C, h, w, c_out],
+                           "per_pass": launches, "ms": {k: sum(v) / len(v) for k, v in ms.items()}, "ms_turns": ms}
+                    rows.append(row)
+                    print(f"{kernel} {path} {row['shape']} {regime}: "
+                          + " ".join(f"{k} {v:.4f} ms" for k, v in row["ms"].items()), flush=True)
+                    del args
+                torch.cuda.empty_cache()
+    totals = per_pass(rows, ("kernel", "path", "regime"))
+    for key, v in totals.items():
+        print(f"per pass {key}: baseline {v['baseline']:.4f} ms this {v['this']:.4f} ms "
+              f"ratio {v['this_over_baseline']:.4f}", flush=True)
+    return {"per_pass_ms": totals, "shapes": rows}
+
+
+def backward_phase(builds: dict, dev) -> dict:
+    from transmvsnet_tpu_torch.ops.cuda.dcn_bwd import dcn_bwd, dcn_bwd_plain
+
+    gen = torch.Generator().manual_seed(1)
+    b, ph, pw = PATHS["train"]
+    N = b * V
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        for h, w, c_out, launches in head_shapes(ph, pw):
+            def rnd(*shape, s=1.0):
+                return (torch.randn(*shape, generator=gen) * s).to(dev)
+
+            x = rnd(N, C, h, w).to(dtype)
+            mask = torch.rand(N, 9, h, w, generator=gen).to(dev)
+            weight = rnd(9, C, c_out, s=0.1)
+            g = rnd(N, c_out, h, w)
+            for off in BWD_OFFSETS:
+                call = (x, rnd(N, 9, h, w, s=off), rnd(N, 9, h, w, s=off), mask, weight, g)
+                want = dcn_bwd_plain(*call)
+                for name, libs in builds.items():
+                    with using(libs):
+                        got = dcn_bwd(*call)
+                    bad = sum(outside(a, b_, 1e-3, 1e-4) for a, b_ in zip(got, want))
+                    if bad:
+                        raise AssertionError(f"{name} K3 disagrees with the plain version at "
+                                             f"{dtype} {(N, C, h, w, c_out)} offsets {off}: {bad}")
+                del got, want
+                ms = in_turns(builds, lambda: cuda_ms(lambda: dcn_bwd(*call), ITERS))
+                row = {"kernel": "dcn_bwd" + ("_f32" if dtype == torch.float32 else ""),
+                       "offsets": off, "shape": [N, C, h, w, c_out], "per_pass": launches,
+                       "ms": {k: sum(v) / len(v) for k, v in ms.items()}, "ms_turns": ms}
+                rows.append(row)
+                print(f"{row['kernel']} {row['shape']} offsets {off}: "
+                      + " ".join(f"{k} {v:.4f} ms" for k, v in row["ms"].items()), flush=True)
+            del x, mask, weight, g, call
+            torch.cuda.empty_cache()
+    totals = per_pass(rows, ("kernel", "offsets"))
+    for key, v in totals.items():
+        print(f"per step {key}: baseline {v['baseline']:.4f} ms this {v['this']:.4f} ms "
+              f"ratio {v['this_over_baseline']:.4f}", flush=True)
+    return {"per_step_ms": totals, "shapes": rows}
+
+
+def summarise_turns(turns: dict, key: str) -> dict:
+    mean = {name: {k: sum(t[k] for t in v) / len(v) for k in v[0]} for name, v in turns.items()}
+    spread = {name: max(t[key] for t in v) - min(t[key] for t in v) for name, v in turns.items()}
+    return {"mean": mean, "spread": spread, "turns": turns,
+            "this_over_baseline": mean["this"][key] / mean["baseline"][key]}
+
+
+def step_phase(builds: dict, dev) -> dict:
+    from transmvsnet_tpu_torch.config import ModelConfig
+    from transmvsnet_tpu_torch.data.example import example_train_batch
+    from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
+    from transmvsnet_tpu_torch.train.loop import to_device_batch
+    from transmvsnet_tpu_torch.train.schedule import make_optimizer, warmup_multistep
+    from transmvsnet_tpu_torch.train.step import TrainState, make_train_step
+
+    out = {}
+    b, ph, pw = PATHS["train"]
+    for label, dtype_name, fused in (("bf16", "bfloat16", False), ("float32", "float32", False),
+                                     ("bf16_fused", "bfloat16", True)):
+        cfg = ModelConfig(ndepths=(48, 32, 8), compute_dtype=dtype_name, fused_view_sum=fused)
+        model = TransMVSNet(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+        batch = to_device_batch(example_train_batch(B=b, V=V, H=ph, W=pw, num_hyp=192), dev)
+        state = TrainState(model, *make_optimizer(model.parameters(), warmup_multistep(1e-3, [10**6], 0.5)))
+        train_step = make_train_step()
+
+        def timed():
+            marks = {k: [] for k in ("start", "forward", "backward", "optimizer")}
+
+            def mark(phase):
+                e = torch.cuda.Event(enable_timing=True)
+                e.record()
+                marks[phase].append(e)
+
+            for _ in range(TRAIN_STEPS):
+                mark("start")
+                train_step(state, batch, mark)
+            torch.cuda.synchronize()
+            split = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+            for i in range(TRAIN_STEPS):
+                prev = marks["start"][i]
+                for phase in split:
+                    split[phase] += prev.elapsed_time(marks[phase][i]) / TRAIN_STEPS
+                    prev = marks[phase][i]
+            return {"ms_per_step": sum(split.values()), **split}
+
+        # PyTorch's default arithmetic (cuDNN may use TF32), as tools/train.py.
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+            timed()  # warm-up: cuDNN plans, the allocator
+            out[label] = summarise_turns(in_turns(builds, timed), "ms_per_step")
+        print(f"step {label}: " + json.dumps({k: out[label][k] for k in ("mean", "spread", "this_over_baseline")}),
+              flush=True)
+        del model, batch, state
+        torch.cuda.empty_cache()
+    return out
+
+
+def forwards_phase(builds: dict, dev) -> dict:
+    from transmvsnet_tpu_torch.config import ModelConfig
+    from transmvsnet_tpu_torch.data.example import example_inputs
+    from transmvsnet_tpu_torch.models.feature_net import DCN
+    from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
+
+    out = {}
+    b, ph, pw = PATHS["inference"]
+    imgs, projs, dv = example_inputs(B=b, V=V, H=ph, W=pw, num_hyp=192)
+    t_imgs = torch.from_numpy(imgs).to(dev)
+    t_projs = {k: torch.from_numpy(v).to(dev) for k, v in projs.items()}
+    t_dv = torch.from_numpy(dv).to(dev)
+    for label, dtype_name in (("bf16", "bfloat16"), ("float32", "float32")):
+        gen = torch.Generator().manual_seed(0)
+        model = TransMVSNet(ModelConfig(ndepths=(48, 32, 8), compute_dtype=dtype_name), device=dev,
+                            generator=gen).eval()
+        k_scale, b_scale = FWD_REGIMES["inference"]
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, DCN):
+                    w, bb = m.conv_offset_mask.weight, m.conv_offset_mask.bias
+                    w.copy_(torch.randn(w.shape, generator=gen) * k_scale)
+                    bb.copy_(torch.randn(bb.shape, generator=gen) * b_scale)
+
+        def timed():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            with torch.no_grad():
+                start.record()
+                for _ in range(REQUESTS):
+                    model(t_imgs, t_projs, t_dv)
+                end.record()
+            torch.cuda.synchronize()
+            return {"ms_per_depth_map": start.elapsed_time(end) / REQUESTS}
+
+        # The inference CLI's arithmetic: float32 in PyTorch's default (cuDNN
+        # may use TF32); bf16 as chip_smoke.py times it.
+        flags = torch.backends.cudnn.flags(enabled=True, allow_tf32=dtype_name == "float32")
+        with flags:
+            timed()  # warm-up
+            out[label] = summarise_turns(in_turns(builds, timed), "ms_per_depth_map")
+        print(f"forward {label}: " + json.dumps({k: out[label][k] for k in ("mean", "spread", "this_over_baseline")}),
+              flush=True)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("comparing kernels needs a CUDA card; torch.cuda.is_available() is false")
+    from transmvsnet_tpu_torch.ops.cuda import build
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    # Comparisons in full float32; the steps and forwards are timed in the CLIs' arithmetic.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    build.build_all()
+    builds = {"baseline": build_baseline(pathlib.Path(args.baseline)),
+              "this": {name: build.library(name) for name in LIBRARIES}}
+    head = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    if not args.no_kernels:
+        print(json.dumps({**head, "phase": "forward_kernels", **forward_phase(builds, dev)}), flush=True)
+        print(json.dumps({**head, "phase": "backward_kernel", **backward_phase(builds, dev)}), flush=True)
+    if args.forwards:
+        print(json.dumps({**head, "phase": "forwards", **forwards_phase(builds, dev)}), flush=True)
+    if args.steps:
+        print(json.dumps({**head, "phase": "steps", **step_phase(builds, dev)}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

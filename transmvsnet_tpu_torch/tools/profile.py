@@ -125,8 +125,8 @@ def main(argv=None):
         "port_kernels": {
             k: {"ms_per_pass": sum(v[0] for n, v in by_name.items() if k in n) / 1e3 / args.iters,
                 "launches_per_pass": sum(v[1] for n, v in by_name.items() if k in n) / args.iters}
-            for k in ("dcn_fused_kernel", "dcn_kernel", "warp_correlate_kernel", "dcn_bwd_kernel",
-                      "warp_correlate_bwd_kernel")
+            # dcn_fwd_kernel: K1 in bf16 (its last template argument true), K5 in float32.
+            for k in ("dcn_fwd_kernel", "warp_correlate_kernel", "dcn_bwd_kernel", "warp_correlate_bwd_kernel")
         },
         # Launches of 1 ms or more in the first traced pass, in order.
         "long_launches": [
