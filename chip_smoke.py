@@ -12,7 +12,8 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this repository's
 3. Kernel checks: each kernel instantiation against its plain PyTorch
    version on the card, on the same inputs, at every shape its path gives
    it; kernel and plain times by CUDA events. bf16: K1-K4 and the fused
-   view sum's K7/K8 (stages 2-3); float32: K5, K6 and K3/K4's float
+   view sum's K7/K8 (stages 2-3; K8 without dvw, as the fused step runs
+   it, and with dvw); float32: K5, K6 and K3/K4's float
    instantiations; K5's bf16 instantiation (row 4, on no model path) at
    the bf16 DCN shapes. K1 and K5 are checked (each also for bitwise
    repeatability) and timed at three offset regimes (see
@@ -358,27 +359,6 @@ def dcn_given_checks(dev, gen, dtype) -> dict:
 SWEEPS = [("stage1", 32, NDEPTHS[0]), ("stage2", 16, NDEPTHS[1]), ("stage3", 8, NDEPTHS[2])]
 
 
-def sweep_inputs(gen, dev, b, ph, pw, stage_index, stage, C, D, dtype):
-    """Features, hypotheses and fused projections of one plane sweep for
-    b batches of V views at ph x pw: random features in ``dtype``,
-    hypotheses across the DTU range with a band behind the cameras
-    (source z < 1e-6)."""
-    from transmvsnet_tpu_torch.data.example import DEPTH_MAX, DEPTH_MIN, example_inputs
-    from transmvsnet_tpu_torch.ops.geometry import fuse_projection
-
-    _, projs, _ = example_inputs(B=b, V=V, H=ph, W=pw)
-    scale = 2 ** (2 - stage_index)
-    h, w = ph // scale, pw // scale
-    src = torch.randn(b, V - 1, C, h, w, generator=gen).to(dev, dtype)
-    ref = torch.randn(b, C, h, w, generator=gen).to(dev, dtype)
-    base = torch.linspace(DEPTH_MIN, DEPTH_MAX, D)[None, :, None, None]
-    depth = base + 5.0 * torch.rand(b, D, h, w, generator=gen)
-    depth[:, :, : h // 16] *= -1.0
-    depth = depth.to(dev).contiguous()
-    fused = fuse_projection(torch.from_numpy(projs[stage]).to(dev))
-    return src, ref, fused[:, 1:].contiguous(), fused[:, 0].contiguous(), depth
-
-
 def warp_checks(dev, gen, dtype) -> dict:
     """K2 (bf16 features) or K6 (float32 features) at every plane sweep of
     both paths."""
@@ -386,6 +366,7 @@ def warp_checks(dev, gen, dtype) -> dict:
         warp_correlate,
         warp_correlate_plain,
     )
+    from transmvsnet_tpu_torch.tools.compare_dcn import sweep_inputs
 
     name = "warp_correlate" + suffix(dtype)
     S = V - 1
@@ -526,11 +507,11 @@ def dcn_bwd_checks(dev, gen, dtype) -> dict:
 def warp_bwd_checks(dev, gen, dtype) -> dict:
     """K4's instantiation for ``dtype`` at every plane sweep of the training
     path."""
-    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate
     from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import (
         warp_correlate_bwd,
         warp_correlate_bwd_plain,
     )
+    from transmvsnet_tpu_torch.tools.compare_dcn import sweep_inputs, valid_share
 
     name = "warp_correlate_bwd" + suffix(dtype)
     Bt, S = TRAIN_B, V - 1
@@ -549,8 +530,7 @@ def warp_bwd_checks(dev, gen, dtype) -> dict:
         del got, want
         ms = cuda_ms(lambda: warp_correlate_bwd(*args), iters=10, warmup=2)
         plain_ms = cuda_ms(lambda: warp_correlate_bwd_plain(*args), iters=1, warmup=1)
-        with torch.no_grad():
-            valid = (warp_correlate(*fwd_args) != 0).float().mean().item()
+        valid = valid_share(fwd_args)
         n_out = Bt * S * D * h * w
         es = fwd_args[0].element_size()
         nbytes = (es * (Bt * S + Bt) * C * h * w + 4 * Bt * D * h * w + 4 * n_out  # src, ref, depth, g
@@ -578,19 +558,12 @@ WSUM_SWEEPS = [(i, *sweep) for i, sweep in enumerate(SWEEPS)][1:]
 
 def wsum_inputs(gen, dev, b, ph, pw, i, stage, C, D):
     """``sweep_inputs`` in bf16 plus view weights in [0, 1)."""
+    from transmvsnet_tpu_torch.tools.compare_dcn import sweep_inputs
+
     args = sweep_inputs(gen, dev, b, ph, pw, i, stage, C, D, torch.bfloat16)
     h, w = args[0].shape[-2:]
     vw = torch.rand(b, V - 1, h, w, generator=gen).to(dev)
     return (*args, vw)
-
-
-def valid_share(args) -> float:
-    """Share of (view, hypothesis, pixel) samples that land on the source
-    image, by K2 on the same features and hypotheses."""
-    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate
-
-    with torch.no_grad():
-        return (warp_correlate(*args[:5]) != 0).float().mean().item()
 
 
 def wsum_checks(dev, gen) -> dict:
@@ -599,6 +572,7 @@ def wsum_checks(dev, gen) -> dict:
         warp_correlate_wsum,
         warp_correlate_wsum_plain,
     )
+    from transmvsnet_tpu_torch.tools.compare_dcn import valid_share
 
     S = V - 1
     rows = []
@@ -638,12 +612,15 @@ def wsum_checks(dev, gen) -> dict:
 
 
 def wsum_bwd_checks(dev, gen) -> dict:
-    """K8 (dsrc, dref and dvw of the view-weighted sum, bf16) at stages 2-3
-    of the training path."""
+    """K8 (dsrc and dref of the view-weighted sum, bf16) at stages 2-3 of
+    the training path, in both instantiations: without dvw, what the fused
+    step runs (its view weights need no gradient), whose time is the kernel
+    line's "ms"; and with dvw."""
     from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import (
         warp_correlate_wsum_bwd,
         warp_correlate_wsum_bwd_plain,
     )
+    from transmvsnet_tpu_torch.tools.compare_dcn import valid_share
 
     Bt, S = TRAIN_B, V - 1
     rows = []
@@ -652,35 +629,47 @@ def wsum_bwd_checks(dev, gen) -> dict:
         h, w = fwd_args[0].shape[-2:]
         g = torch.randn(Bt, D, h, w, generator=gen).to(dev)
         args = (*fwd_args, g)
-        got = warp_correlate_wsum_bwd(*args)
-        want = warp_correlate_wsum_bwd_plain(*args)
-        torch.cuda.synchronize()
-        # As K4: float32 arithmetic up to summation order (atomics) and
-        # fused multiply-adds in the projection (~1e-5 px of position).
-        res = check_all(got, want, 1e-3, 1e-3, f"warp_correlate_wsum_bwd at {stage}")
-        del got, want
-        ms = cuda_ms(lambda: warp_correlate_wsum_bwd(*args), iters=10, warmup=2)
-        plain_ms = cuda_ms(lambda: warp_correlate_wsum_bwd_plain(*args), iters=1, warmup=1)
+        res, ms, plain_ms = {}, {}, {}
+        for need_dvw in (False, True):
+            got = warp_correlate_wsum_bwd(*args, need_dvw=need_dvw)
+            want = warp_correlate_wsum_bwd_plain(*args, need_dvw=need_dvw)
+            torch.cuda.synchronize()
+            if (got[2] is None) == need_dvw:
+                raise AssertionError(f"warp_correlate_wsum_bwd returned dvw against need_dvw={need_dvw}")
+            # As K4: float32 arithmetic up to summation order (atomics) and
+            # fused multiply-adds in the projection (~1e-5 px of position).
+            res[need_dvw] = check_all(got[: 2 + need_dvw], want[: 2 + need_dvw], 1e-3, 1e-3,
+                                      f"warp_correlate_wsum_bwd (need_dvw={need_dvw}) at {stage}")
+            del got, want
+            ms[need_dvw] = cuda_ms(lambda: warp_correlate_wsum_bwd(*args, need_dvw=need_dvw), iters=10, warmup=2)
+            plain_ms[need_dvw] = cuda_ms(lambda: warp_correlate_wsum_bwd_plain(*args, need_dvw=need_dvw),
+                                         iters=1, warmup=1)
         valid = valid_share(fwd_args)
         n_samples = Bt * S * D * h * w
         nbytes = (2 * (Bt * S + Bt) * C * h * w + 4 * Bt * D * h * w      # src, ref, depth
                   + 4 * Bt * S * h * w + 4 * Bt * D * h * w + 4 * Bt * S * 12  # vw, g, rel
-                  + 4 * (Bt * S + Bt) * C * h * w + 4 * Bt * S * h * w)     # dsrc, dref, dvw
+                  + 4 * (Bt * S + Bt) * C * h * w)                          # dsrc, dref
         # Projection (~12) per sample; where it is valid, per channel the
-        # bilinear sample (~8), the dref and dvw products (4) and the
-        # scatter (~8).
-        flops = n_samples * (12 + valid * 20 * C)
-        bd = bound(nbytes, flops, torch.bfloat16)
-        rows.append(dict(path="train_fused", shape=[Bt, S, C, D, h, w], per_pass=1, ms=ms,
-                         plain_ms=plain_ms, nonzero_share=valid, **bd, **res))
-        print(f"warp_correlate_wsum_bwd {[Bt, S, C, D, h, w]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
-              f"bound_ms {bd['bound_ms']:.4f} ({bd['bound_by']}) "
-              f"max_abs_err {res['max_abs_err']:.3g} at scale {res['scale']:.3g} valid {valid:.3f}",
+        # bilinear sample (~8), the dref product (2) and the scatter (~8);
+        # with dvw also its product (2) and its write.
+        bd = bound(nbytes, n_samples * (12 + valid * 18 * C), torch.bfloat16)
+        bd_dvw = bound(nbytes + 4 * Bt * S * h * w, n_samples * (12 + valid * 20 * C), torch.bfloat16)
+        worst = max(res.values(), key=lambda r: r["max_abs_err"])
+        rows.append(dict(path="train_fused", shape=[Bt, S, C, D, h, w], per_pass=1, ms=ms[False],
+                         plain_ms=plain_ms[False], ms_with_dvw=ms[True], plain_ms_with_dvw=plain_ms[True],
+                         bound_ms_with_dvw=bd_dvw["bound_ms"], nonzero_share=valid, **bd, **worst))
+        print(f"warp_correlate_wsum_bwd {[Bt, S, C, D, h, w]}: ms without / with dvw {ms[False]:.4f} / "
+              f"{ms[True]:.4f} plain_ms {plain_ms[False]:.4f} / {plain_ms[True]:.4f} bound_ms "
+              f"{bd['bound_ms']:.4f} / {bd_dvw['bound_ms']:.4f} ({bd['bound_by']}) "
+              f"max_abs_err {worst['max_abs_err']:.3g} at scale {worst['scale']:.3g} valid {valid:.3f}",
               flush=True)
         del fwd_args, g, args
         torch.cuda.empty_cache()
-    return summarise("warp_correlate_wsum_bwd", "transmvsnet_tpu_torch/csrc/warp_correlate_bwd.cu",
-                     "transmvsnet_tpu/ops/pallas/warp_bwd.py:469", rows, "train_fused")
+    entry = summarise("warp_correlate_wsum_bwd", "transmvsnet_tpu_torch/csrc/warp_correlate_bwd.cu",
+                      "transmvsnet_tpu/ops/pallas/warp_bwd.py:469", rows, "train_fused")
+    entry["with_dvw"] = {key: sum(r[key] for r in rows)
+                         for key in ("ms_with_dvw", "plain_ms_with_dvw", "bound_ms_with_dvw")}
+    return entry
 
 
 def summarise(name, source, replaces, rows, main) -> dict:
@@ -1053,8 +1042,8 @@ def patched(module, name, wrap):
 def zero_outputs(*which):
     """Wraps a backward kernel so that the outputs at ``which`` are zero."""
     def wrap(fn):
-        def faulty(*args):
-            return tuple(torch.zeros_like(t) if i in which else t for i, t in enumerate(fn(*args)))
+        def faulty(*args, **kwargs):
+            return tuple(torch.zeros_like(t) if i in which else t for i, t in enumerate(fn(*args, **kwargs)))
         return faulty
     return wrap
 

@@ -634,3 +634,93 @@ def test_wsum_wrappers_refuse_float32_features_and_gradients(dev):
     w = vw.clone().requires_grad_()
     with pytest.raises(RuntimeError, match="no gradient"):
         warp_correlate_wsum(src.to(torch.bfloat16), ref.to(torch.bfloat16), sp, rp, depth, w)
+
+
+def warp_bwd_scene(gen, dev, dtype, C, H, W, kind):
+    """``warp_scene`` (baselines take samples out of the frame) or, with
+    kind "squeezed", source cameras of 1/20 the reference's focal length,
+    which put blocks of reference pixels onto a few source cells (their
+    corners coincide), or, with kind "outside", baselines that take every
+    sample out of the frame."""
+    src, ref, sp, rp, depth = warp_scene(gen, dev, dtype, C, H, W)
+    if kind == "squeezed":
+        sp = sp.clone()
+        sp[..., 0, 0] *= 0.05
+        sp[..., 1, 1] *= 0.05
+    elif kind == "outside":
+        sp = sp.clone()
+        sp[..., 0, 3] += 20.0 * W
+    return src, ref, sp, rp, depth
+
+
+# K4 in both dtypes and K8 in both instantiations: (features, need_dvw).
+WARP_BWD_KERNELS = {"k4_bf16": (torch.bfloat16, None), "k4_f32": (torch.float32, None),
+                    "k8_dvw": (torch.bfloat16, True), "k8_no_dvw": (torch.bfloat16, False)}
+
+
+def warp_bwd_call(kernel, gen, dev, C, H, W, kind):
+    """(kernel call, its plain version, launch counter (wrapper, attribute))
+    of one of WARP_BWD_KERNELS on a scene; K8's view weights are zero over
+    a band of one view."""
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import (
+        warp_correlate_bwd,
+        warp_correlate_bwd_plain,
+        warp_correlate_wsum_bwd,
+        warp_correlate_wsum_bwd_plain,
+    )
+
+    dtype, need_dvw = WARP_BWD_KERNELS[kernel]
+    fwd = warp_bwd_scene(gen, dev, dtype, C, H, W, kind)
+    B, S, D = fwd[0].shape[0], fwd[0].shape[1], fwd[4].shape[1]
+    if need_dvw is None:
+        g = torch.randn(B, S, D, H, W, generator=gen).to(dev)
+        counter = (warp_correlate_bwd, "launches_f32" if dtype == torch.float32 else "launches")
+        return (lambda: warp_correlate_bwd(*fwd, g)), (lambda: warp_correlate_bwd_plain(*fwd, g)), counter
+    vw = torch.rand(B, S, H, W, generator=gen)
+    vw[:, 1, : H // 3] = 0.0
+    vw = vw.to(dev)
+    g = torch.randn(B, D, H, W, generator=gen).to(dev)
+    return ((lambda: warp_correlate_wsum_bwd(*fwd, vw, g, need_dvw=need_dvw)),
+            (lambda: warp_correlate_wsum_bwd_plain(*fwd, vw, g, need_dvw=need_dvw)),
+            (warp_correlate_wsum_bwd, "launches"))
+
+
+@pytest.mark.parametrize("kernel", list(WARP_BWD_KERNELS))
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("H,W,kind", [(5, 9, "frame"), (40, 300, "frame"), (31, 47, "squeezed"),
+                                      (64, 129, "squeezed"), (23, 130, "outside")])
+def test_warp_bwd_kernels_match_plain(dev, kernel, C, H, W, kind):
+    """K4 (bf16, float32) and K8 (with and without dvw) at ragged shapes
+    (no width a multiple of a tile; 40x300 and 64x129 span many tiles),
+    with coinciding corners (squeezed) and with every sample off the
+    frame (outside: all gradients zero)."""
+    gen = torch.Generator().manual_seed(C * 1000 + H * 7 + W)
+    call, plain, (counter, attr) = warp_bwd_call(kernel, gen, dev, C, H, W, kind)
+    before = getattr(counter, attr)
+    got = call()
+    torch.cuda.synchronize()
+    assert getattr(counter, attr) == before + 1
+    want = plain()
+    assert (got[-1] is None) == (want[-1] is None)
+    for a, b, name in zip(got, want, ("dsrc", "dref", "dvw")):
+        if b is None:
+            continue
+        assert a.shape == b.shape and a.dtype == torch.float32 and a.is_contiguous(), name
+        assert_close_f32(a, b, name)
+    if kind == "outside":
+        assert not any(t.any() for t in got if t is not None)
+    else:
+        assert got[0].abs().max() > 0 and got[1].abs().max() > 0
+
+
+@pytest.mark.parametrize("kernel", list(WARP_BWD_KERNELS))
+def test_warp_bwd_two_launches_agree(dev, kernel):
+    """The reductions add in no fixed order: two launches on the same
+    inputs agree within the tolerance, not bitwise."""
+    gen = torch.Generator().manual_seed(43)
+    call, _, _ = warp_bwd_call(kernel, gen, dev, 32, 48, 130, "squeezed")
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    for a, b, name in zip(first, second, ("dsrc", "dref", "dvw")):
+        if a is not None:
+            assert_close_f32(a, b, name)

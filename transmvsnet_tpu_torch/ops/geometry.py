@@ -27,26 +27,17 @@ def fuse_projection(proj: torch.Tensor) -> torch.Tensor:
 
 
 def invert_fused_projection(proj: torch.Tensor) -> torch.Tensor:
-    """Closed-form inverse of [[M, p], [0, 1]] via the adjugate of M."""
-    M = proj[..., :3, :3]
-    p = proj[..., :3, 3:4]
-    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
-    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
-    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
-    det = a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
-    adj = torch.stack(
-        [
-            torch.stack([e * i - f * h, c * h - b * i, b * f - c * e], dim=-1),
-            torch.stack([f * g - d * i, a * i - c * g, c * d - a * f], dim=-1),
-            torch.stack([d * h - e * g, b * g - a * h, a * e - b * d], dim=-1),
-        ],
-        dim=-2,
-    )
+    """Closed-form inverse of [[M, p], [0, 1]] via the adjugate of M, whose
+    columns are the cross products of M's rows. A dozen small operations,
+    all on the device (the kernel wrappers call this on every launch)."""
+    r0, r1, r2 = proj[..., 0, :3], proj[..., 1, :3], proj[..., 2, :3]
+    adj = torch.stack([torch.linalg.cross(r1, r2), torch.linalg.cross(r2, r0), torch.linalg.cross(r0, r1)], dim=-1)
+    det = (r0 * adj[..., :, 0]).sum(-1)
     Minv = adj * (1.0 / det)[..., None, None]
-    top = torch.cat([Minv, -(Minv @ p)], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=proj.dtype, device=proj.device)
-    bottom = bottom.expand(*proj.shape[:-2], 1, 4)
-    return torch.cat([top, bottom], dim=-2)
+    top = torch.cat([Minv, -(Minv @ proj[..., :3, 3:4])], dim=-1)
+    out = torch.nn.functional.pad(top, (0, 0, 0, 1))
+    out[..., 3, 3] = 1.0
+    return out
 
 
 def relative_projection(src_proj: torch.Tensor, ref_proj: torch.Tensor) -> torch.Tensor:

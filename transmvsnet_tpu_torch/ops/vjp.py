@@ -30,8 +30,9 @@ CPU too. Ported from ``transmvsnet_tpu/ops/pallas/vjp.py``
   the sample grid without a gradient).
 - The view-weighted warp-correlation sum (bf16 features; K7 with K8):
   as the warp-correlation, plus the view weights' gradient, which K8
-  computes beside dsrc and dref and the Function returns only when the
-  weights need one (the model passes detached weights).
+  computes beside dsrc and dref only when the weights need one (the model
+  passes detached weights, so its steps take K8's instantiation without
+  it).
 """
 
 from __future__ import annotations
@@ -131,8 +132,10 @@ class _WarpCorrelateWsum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         src, ref, src_proj, ref_proj, depth, vw = ctx.saved_tensors
-        dsrc, dref, dvw = warp_correlate_wsum_bwd(src, ref, src_proj, ref_proj, depth, vw, g)
-        dvw = dvw.to(vw.dtype) if ctx.needs_input_grad[5] else None
+        need_dvw = ctx.needs_input_grad[5]
+        dsrc, dref, dvw = warp_correlate_wsum_bwd(src, ref, src_proj, ref_proj, depth, vw, g,
+                                                  need_dvw=need_dvw)
+        dvw = dvw.to(vw.dtype) if need_dvw else None
         return dsrc.to(src.dtype), dref.to(ref.dtype), None, None, None, dvw
 
 

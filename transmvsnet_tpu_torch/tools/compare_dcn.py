@@ -1,15 +1,20 @@
 """Time the DCN kernels (K1 ``csrc/dcn_fused.cu``, K5 ``csrc/dcn.cu`` and K3
-``csrc/dcn_bwd.cu``) against another build of the same sources, on one card,
-in turns: typically the kernels of an earlier commit.
+``csrc/dcn_bwd.cu``) and the warp-correlation backward (K4 and K8,
+``csrc/warp_correlate_bwd.cu``) against another build of the same sources,
+on one card, in turns: typically the kernels of an earlier commit.
 
     git archive <commit> transmvsnet_tpu_torch/csrc | tar -x -C build/baseline
     python -m transmvsnet_tpu_torch.tools.compare_dcn \\
-        --baseline build/baseline/transmvsnet_tpu_torch/csrc [--steps] [--forwards]
+        --baseline build/baseline/transmvsnet_tpu_torch/csrc [--warp] [--steps] [--forwards]
 
 The baseline directory holds the other sources (and any header they
 include); each exports the C entry point that the wrappers in ``ops/cuda/``
 call, so the baseline runs under the same wrappers, with the libraries that
-they call swapped.
+they call swapped. K4's and K8's entry points take trailing arguments
+(scratch, K8's dvw flag) that the builds before them lack: under the
+x86-64 calling convention such a build ignores them, and the wrappers keep
+its contract (zeroed outputs, a dvw buffer), so it computes dvw always, as
+its steps did.
 
 1. Kernels, each build first held to the plain version on the same inputs
    (the tolerances of ``chip_smoke.py``), then timed by CUDA events in turns
@@ -31,9 +36,22 @@ they call swapped.
 3. ``--forwards``: the inference forward at 1152x864, 5 views, in bf16 and
    float32 (offset convs with random weights, as ``chip_smoke.py`` sets
    them), with each build in turns: ms per depth map.
+4. ``--warp``: K4 (bf16 and float32) and K8 (with and without dvw), each
+   build held to the plain version (``chip_smoke.py``'s gate) and timed in
+   turns, on two kinds of inputs:
+   - the checks' inputs (``sweep_inputs``: random features, per-pixel
+     noise on the hypotheses, a band behind the cameras) at the training
+     path's three plane sweeps (K8 at stages 2-3, where it runs);
+   - the arguments of every K4/K8 call of one real training step, in bf16,
+     float32 and bf16 with the fused view sum, captured after two Adam
+     steps from seeded weights (``capture_step_calls``); K8's calls as the
+     step makes them (without dvw) and again with dvw.
+   ms per shape and per step (each shape's ms summed over a step's calls),
+   beside the share of samples that land on the source image.
 
 Prints one JSON line per phase, each with the card's name and power limit;
-``--no-kernels`` skips phase 1 (to time only the passes in a shorter run).
+``--no-kernels`` skips phase 1 (to time only the other phases in a shorter
+run).
 """
 
 from __future__ import annotations
@@ -49,7 +67,7 @@ import subprocess
 import torch
 
 # The libraries a build provides: the wrappers' names for csrc/<name>.cu.
-LIBRARIES = ("dcn_fused", "dcn", "dcn_bwd")
+LIBRARIES = ("dcn_fused", "dcn", "dcn_bwd", "warp_correlate_bwd")
 C, V = 32, 5
 # (batch, height, width) of each path that runs the DCN kernels.
 PATHS = {"inference": (1, 864, 1152), "train": (2, 512, 640)}
@@ -66,6 +84,12 @@ ROUNDS = 2       # pairs of turns: baseline, this tree, this tree, baseline
 ITERS = 5        # kernel calls timed per turn
 TRAIN_STEPS = 3  # training steps timed per turn
 REQUESTS = 3     # inference forwards timed per turn
+# The training path's plane sweeps: (stage, C, D); K8 runs at stages 2-3.
+SWEEPS = (("stage1", 32, 48), ("stage2", 16, 32), ("stage3", 8, 8))
+# The training steps that --steps times and whose K4/K8 calls --warp
+# captures: (label, dtype, fused view sum).
+STEP_CONFIGS = (("bf16", "bfloat16", False), ("float32", "float32", False), ("bf16_fused", "bfloat16", True))
+WARP_GATE = (1e-3, 1e-3)  # rtol, atol_scale: chip_smoke.py's gate for K4 and K8
 
 
 def head_shapes(h: int, w: int) -> list[tuple[int, int, int, int]]:
@@ -115,6 +139,7 @@ def parse_args(argv=None):
     p.add_argument("--baseline", required=True, help="directory of the other dcn_fused.cu, dcn.cu, dcn_bwd.cu")
     p.add_argument("--steps", action="store_true", help="also time the training steps in turns")
     p.add_argument("--forwards", action="store_true", help="also time the inference forwards in turns")
+    p.add_argument("--warp", action="store_true", help="also time K4 and K8 in turns")
     p.add_argument("--no-kernels", action="store_true", help="skip phase 1 (with --steps or --forwards)")
     return p.parse_args(argv)
 
@@ -274,6 +299,156 @@ def backward_phase(builds: dict, dev) -> dict:
     return {"per_step_ms": totals, "shapes": rows}
 
 
+def sweep_inputs(gen, dev, b, ph, pw, stage_index, stage, C, D, dtype):
+    """Features, hypotheses and fused projections of one plane sweep for
+    b batches of V views at ph x pw: random features in ``dtype``,
+    hypotheses across the DTU range with 5 mm of per-pixel noise and a band
+    behind the cameras (source z < 1e-6)."""
+    from transmvsnet_tpu_torch.data.example import DEPTH_MAX, DEPTH_MIN, example_inputs
+    from transmvsnet_tpu_torch.ops.geometry import fuse_projection
+
+    _, projs, _ = example_inputs(B=b, V=V, H=ph, W=pw)
+    scale = 2 ** (2 - stage_index)
+    h, w = ph // scale, pw // scale
+    src = torch.randn(b, V - 1, C, h, w, generator=gen).to(dev, dtype)
+    ref = torch.randn(b, C, h, w, generator=gen).to(dev, dtype)
+    base = torch.linspace(DEPTH_MIN, DEPTH_MAX, D)[None, :, None, None]
+    depth = base + 5.0 * torch.rand(b, D, h, w, generator=gen)
+    depth[:, :, : h // 16] *= -1.0
+    depth = depth.to(dev).contiguous()
+    fused = fuse_projection(torch.from_numpy(projs[stage]).to(dev))
+    return src, ref, fused[:, 1:].contiguous(), fused[:, 0].contiguous(), depth
+
+
+def capture_step_calls(dev, dtype_name: str, fused: bool, warm_steps: int = 2, shape=None,
+                       ndepths=(48, 32, 8)) -> list:
+    """The arguments of every K4/K8 call of one training step at the DTU
+    recipe (``shape`` = (batch, height, width), the training path's by
+    default), after ``warm_steps`` Adam steps from seeded weights: a list of
+    (kernel, stage, args, need_dvw) in call order, the arguments cloned;
+    kernel is "warp_correlate_bwd" (K4) or "warp_correlate_wsum_bwd" (K8)
+    and stage "stage1".. by resolution, coarsest first."""
+    from transmvsnet_tpu_torch.config import ModelConfig
+    from transmvsnet_tpu_torch.data.example import example_train_batch
+    from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
+    from transmvsnet_tpu_torch.ops import vjp
+    from transmvsnet_tpu_torch.train.loop import to_device_batch
+    from transmvsnet_tpu_torch.train.schedule import make_optimizer, warmup_multistep
+    from transmvsnet_tpu_torch.train.step import TrainState, make_train_step
+
+    b, ph, pw = shape or PATHS["train"]
+    cfg = ModelConfig(ndepths=ndepths, compute_dtype=dtype_name, fused_view_sum=fused)
+    model = TransMVSNet(cfg, device=dev, generator=torch.Generator().manual_seed(0))
+    batch = to_device_batch(example_train_batch(B=b, V=V, H=ph, W=pw, num_hyp=192), dev)
+    state = TrainState(model, *make_optimizer(model.parameters(), warmup_multistep(1e-3, [10**6], 0.5)))
+    train_step = make_train_step()
+    calls = []
+
+    def spy(name, fn):
+        def call(*args, need_dvw=None):
+            calls.append((name, tuple(a.detach().clone() for a in args), need_dvw))
+            return fn(*args) if need_dvw is None else fn(*args, need_dvw=need_dvw)
+        return call
+
+    # The train CLI's arithmetic (cuDNN may use TF32).
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        for _ in range(warm_steps):
+            train_step(state, batch)
+        own = vjp.warp_correlate_bwd, vjp.warp_correlate_wsum_bwd
+        vjp.warp_correlate_bwd = spy("warp_correlate_bwd", own[0])
+        vjp.warp_correlate_wsum_bwd = spy("warp_correlate_wsum_bwd", own[1])
+        try:
+            train_step(state, batch)
+        finally:
+            vjp.warp_correlate_bwd, vjp.warp_correlate_wsum_bwd = own
+    heights = sorted({args[0].shape[-2] for _, args, _ in calls})
+    return [(name, f"stage{heights.index(args[0].shape[-2]) + 1}", args, need_dvw)
+            for name, args, need_dvw in calls]
+
+
+def valid_share(args) -> float:
+    """Share of (view, hypothesis, pixel) samples of a warp call's
+    arguments that land on the source image (a nonzero forward)."""
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate
+
+    with torch.no_grad():
+        return (warp_correlate(*args[:5]) != 0).float().mean().item()
+
+
+def warp_calls(dev) -> list:
+    """(kernel, inputs, stage, args, need_dvw) of every row of the --warp
+    phase; kernel names as ``chip_smoke.py``'s kernel line, with K8's
+    instantiation without dvw as "warp_correlate_wsum_bwd_no_dvw"."""
+    gen = torch.Generator().manual_seed(1)
+    b, ph, pw = PATHS["train"]
+    S = V - 1
+    rows = []
+    for dtype, kernel in ((torch.bfloat16, "warp_correlate_bwd"), (torch.float32, "warp_correlate_bwd_f32")):
+        for i, (stage, C, D) in enumerate(SWEEPS):
+            fwd = sweep_inputs(gen, dev, b, ph, pw, i, stage, C, D, dtype)
+            g = torch.randn(b, S, D, *fwd[0].shape[-2:], generator=gen).to(dev)
+            rows.append((kernel, "checks", stage, (*fwd, g), None))
+    for i, (stage, C, D) in list(enumerate(SWEEPS))[1:]:
+        fwd = sweep_inputs(gen, dev, b, ph, pw, i, stage, C, D, torch.bfloat16)
+        h, w = fwd[0].shape[-2:]
+        vw = torch.rand(b, S, h, w, generator=gen).to(dev)
+        g = torch.randn(b, D, h, w, generator=gen).to(dev)
+        for need_dvw in (True, False):
+            rows.append(("warp_correlate_wsum_bwd" + ("" if need_dvw else "_no_dvw"), "checks", stage,
+                         (*fwd, vw, g), need_dvw))
+    for label, dtype_name, fused in STEP_CONFIGS:
+        for name, stage, args, need_dvw in capture_step_calls(dev, dtype_name, fused):
+            if name == "warp_correlate_bwd":
+                kernel = name + ("_f32" if args[0].dtype == torch.float32 else "")
+                rows.append((kernel, f"step_{label}", stage, args, None))
+            else:
+                for dvw in (True, False):
+                    rows.append((name + ("" if dvw else "_no_dvw"), f"step_{label}", stage, args, dvw))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def warp_phase(builds: dict, dev) -> dict:
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import (
+        warp_correlate_bwd,
+        warp_correlate_bwd_plain,
+        warp_correlate_wsum_bwd,
+        warp_correlate_wsum_bwd_plain,
+    )
+
+    rows = []
+    for kernel, inputs, stage, args, need_dvw in warp_calls(dev):
+        if need_dvw is None:
+            fn, plain, kw = warp_correlate_bwd, warp_correlate_bwd_plain, {}
+        else:
+            fn, plain, kw = warp_correlate_wsum_bwd, warp_correlate_wsum_bwd_plain, {"need_dvw": need_dvw}
+        want = [t for t in plain(*args, **kw) if t is not None]
+        for name, libs in builds.items():
+            with using(libs):
+                got = fn(*args, **kw)
+            if (got[-1] is None) == need_dvw:
+                raise AssertionError(f"{name} {kernel}: dvw returned against need_dvw={need_dvw}")
+            bad = sum(outside(a, b_, *WARP_GATE) for a, b_ in zip(got, want))
+            if bad:
+                raise AssertionError(f"{name} {kernel} disagrees with the plain version at {inputs} {stage}: "
+                                     f"{bad} outside")
+        del got, want
+        ms = in_turns(builds, lambda: cuda_ms(lambda: fn(*args, **kw), ITERS))
+        row = {"kernel": kernel, "inputs": inputs, "stage": stage, "shape": list(args[0].shape),
+               "D": args[4].shape[1], "per_pass": 1, "valid_share": valid_share(args),
+               "ms": {k: sum(v) / len(v) for k, v in ms.items()}, "ms_turns": ms}
+        rows.append(row)
+        print(f"{kernel} {inputs} {stage} {row['shape']} D {row['D']} valid {row['valid_share']:.3f}: "
+              + " ".join(f"{k} {v:.4f} ms" for k, v in row["ms"].items()), flush=True)
+        del args
+        torch.cuda.empty_cache()
+    totals = per_pass(rows, ("kernel", "inputs"))
+    for key, v in totals.items():
+        print(f"per step {key}: baseline {v['baseline']:.4f} ms this {v['this']:.4f} ms "
+              f"ratio {v['this_over_baseline']:.4f}", flush=True)
+    return {"per_step_ms": totals, "shapes": rows}
+
+
 def summarise_turns(turns: dict, key: str) -> dict:
     mean = {name: {k: sum(t[k] for t in v) / len(v) for k in v[0]} for name, v in turns.items()}
     spread = {name: max(t[key] for t in v) - min(t[key] for t in v) for name, v in turns.items()}
@@ -291,8 +466,7 @@ def step_phase(builds: dict, dev) -> dict:
 
     out = {}
     b, ph, pw = PATHS["train"]
-    for label, dtype_name, fused in (("bf16", "bfloat16", False), ("float32", "float32", False),
-                                     ("bf16_fused", "bfloat16", True)):
+    for label, dtype_name, fused in STEP_CONFIGS:
         cfg = ModelConfig(ndepths=(48, 32, 8), compute_dtype=dtype_name, fused_view_sum=fused)
         model = TransMVSNet(cfg, device=dev, generator=torch.Generator().manual_seed(0))
         batch = to_device_batch(example_train_batch(B=b, V=V, H=ph, W=pw, num_hyp=192), dev)
@@ -396,6 +570,8 @@ def main(argv=None):
     if not args.no_kernels:
         print(json.dumps({**head, "phase": "forward_kernels", **forward_phase(builds, dev)}), flush=True)
         print(json.dumps({**head, "phase": "backward_kernel", **backward_phase(builds, dev)}), flush=True)
+    if args.warp:
+        print(json.dumps({**head, "phase": "warp_backward", **warp_phase(builds, dev)}), flush=True)
     if args.forwards:
         print(json.dumps({**head, "phase": "forwards", **forwards_phase(builds, dev)}), flush=True)
     if args.steps:

@@ -2,7 +2,7 @@
 torch.profiler.
 
     python -m transmvsnet_tpu_torch.tools.profile [--train] [--logdir ./traces]
-        [--nviews 5 --ndepths 48,32,8] [--dtype float32|bfloat16]
+        [--nviews 5 --ndepths 48,32,8] [--dtype float32|bfloat16] [--fused]
 
 Warm-up passes, then ``--iters`` passes traced with CPU and CUDA activity;
 a pass is one forward at the DTU eval setting (batch 1, 1152x864) or, with
@@ -10,11 +10,13 @@ a pass is one forward at the DTU eval setting (batch 1, 1152x864) or, with
 2, 512x640). Prints one JSON line: wall milliseconds per pass
 (CUDA events), device-busy milliseconds per pass (the union of the traced
 kernels' intervals), the device's idle share, the kernels that take the
-most device time, the port's own kernels' totals, and every launch of
-1 ms or more in the first traced pass, in order. With ``--logdir`` it
-also writes a Chrome trace.
-Weights are random from a seeded generator; activations in ``--dtype``
-(float32 by default, as the CLIs).
+most device time, the port's own kernels' totals (``PORT_KERNELS``: each
+kernel with every launch that belongs to it, such as K4's and K8's
+channels-last copy and planar write), and every launch of 1 ms or more in
+the first traced pass, in order. With ``--logdir`` it also writes a Chrome
+trace. Weights are random from a seeded generator; activations in
+``--dtype`` (float32 by default, as the CLIs); ``--fused`` sets
+``fused_view_sum`` (bf16 stages 2-3 through K7 and K8).
 """
 
 from __future__ import annotations
@@ -26,6 +28,17 @@ from collections import defaultdict
 
 import torch
 
+# The port's kernels in a trace: name -> the substring of the launch names
+# (demangled CUDA function names) that belong to it.
+PORT_KERNELS = {
+    "dcn_fwd_kernel": "dcn_fwd_kernel",  # K1 in bf16 (last template argument true), K5
+    "warp_correlate_kernel": "warp_correlate_kernel",  # K2, K6
+    "warp_correlate_wsum_kernel": "warp_correlate_wsum_kernel",  # K7
+    "dcn_bwd_kernel": "dcn_bwd_kernel",  # K3
+    "warp_correlate_bwd": "warp_correlate_bwd_",  # K4: copy, body, planar write
+    "warp_correlate_wsum_bwd": "warp_correlate_wsum_bwd_",  # K8: the same three
+}
+
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Profile the inference forward or a train step (PyTorch/CUDA)")
@@ -34,6 +47,7 @@ def parse_args(argv=None):
     p.add_argument("--nviews", type=int, default=5)
     p.add_argument("--ndepths", default="48,32,8")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
+    p.add_argument("--fused", action="store_true", help="fused_view_sum=True (bf16 stages 2-3 via K7/K8)")
     p.add_argument("--warmup", type=int, default=2)
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--top", type=int, default=15)
@@ -49,6 +63,16 @@ def busy_us(intervals: list[tuple[float, float]]) -> float:
         total += e - max(s, end)
         end = e
     return total
+
+
+def port_kernel_totals(by_name: dict, passes: int) -> dict:
+    """ms and launches per pass of each of ``PORT_KERNELS`` from a trace's
+    {launch name: [microseconds, launches]}."""
+    return {
+        k: {"ms_per_pass": sum(v[0] for n, v in by_name.items() if part in n) / 1e3 / passes,
+            "launches_per_pass": sum(v[1] for n, v in by_name.items() if part in n) / passes}
+        for k, part in PORT_KERNELS.items()
+    }
 
 
 def main(argv=None):
@@ -68,7 +92,7 @@ def main(argv=None):
 
     dev = torch.device("cuda", 0)
     cfg = ModelConfig(ndepths=tuple(int(x) for x in args.ndepths.split(",")),
-                      compute_dtype=args.dtype)
+                      compute_dtype=args.dtype, fused_view_sum=args.fused)
     model = TransMVSNet(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     batch = to_device_batch(example_train_batch(B=batch_size, V=args.nviews, H=height, W=width), dev)
 
@@ -113,6 +137,7 @@ def main(argv=None):
         "shape": [batch_size, args.nviews, height, width],
         "ndepths": list(cfg.ndepths),
         "dtype": cfg.compute_dtype,
+        "fused_view_sum": cfg.fused_view_sum,
         "wall_ms_per_pass": wall_ms,
         "device_busy_ms_per_pass": device_ms,
         "idle_share": 1.0 - device_ms / wall_ms,
@@ -122,12 +147,7 @@ def main(argv=None):
              "launches_per_pass": n / args.iters}
             for name, (us, n) in top
         ],
-        "port_kernels": {
-            k: {"ms_per_pass": sum(v[0] for n, v in by_name.items() if k in n) / 1e3 / args.iters,
-                "launches_per_pass": sum(v[1] for n, v in by_name.items() if k in n) / args.iters}
-            # dcn_fwd_kernel: K1 in bf16 (its last template argument true), K5 in float32.
-            for k in ("dcn_fwd_kernel", "warp_correlate_kernel", "dcn_bwd_kernel", "warp_correlate_bwd_kernel")
-        },
+        "port_kernels": port_kernel_totals(by_name, args.iters),
         # Launches of 1 ms or more in the first traced pass, in order.
         "long_launches": [
             [e.name[:80], e.time_range.elapsed_us() / 1e3] for e in first
@@ -137,7 +157,7 @@ def main(argv=None):
     print(json.dumps(result))
     if args.logdir:
         os.makedirs(args.logdir, exist_ok=True)
-        name = "train_step_trace.json" if args.train else "forward_trace.json"
+        name = ("train_step" if args.train else "forward") + ("_fused" if args.fused else "") + "_trace.json"
         prof.export_chrome_trace(os.path.join(args.logdir, name))
 
 
