@@ -18,7 +18,8 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this repository's
    the bf16 DCN shapes. K1 and K5 are checked (each also for bitwise
    repeatability) and timed at three offset regimes (see
    ``compare_dcn.FWD_REGIMES``), K1 beside the unfused bf16 route as a
-   yardstick; K3 at zero, 2-px and 6-px offsets (see DCN_BWD_OFFSETS).
+   yardstick; K3 at zero, 2-px and 6-px offsets (see DCN_BWD_OFFSETS). K2
+   and K6 are also checked for bitwise repeatability.
 4. Inference paths: the cascade at 1152x864, 5 views, batch 1, 48/32/8
    hypotheses, random weights from a seeded generator, in bfloat16, in
    float32 and in bfloat16 with the fused view sum; a few requests with
@@ -361,12 +362,15 @@ SWEEPS = [("stage1", 32, NDEPTHS[0]), ("stage2", 16, NDEPTHS[1]), ("stage3", 8, 
 
 def warp_checks(dev, gen, dtype) -> dict:
     """K2 (bf16 features) or K6 (float32 features) at every plane sweep of
-    both paths."""
+    both paths. "ms" is the device time of a call's two launches (the
+    channels-last copy and the body) alone, replayed from a CUDA graph
+    (``compare_dcn.kernel_ms``): the wrapper's host time per call, which
+    exceeds it, is "call_ms"."""
     from transmvsnet_tpu_torch.ops.cuda.warp_correlate import (
         warp_correlate,
         warp_correlate_plain,
     )
-    from transmvsnet_tpu_torch.tools.compare_dcn import sweep_inputs
+    from transmvsnet_tpu_torch.tools.compare_dcn import kernel_ms, sweep_inputs, warp_fwd_launch
 
     name = "warp_correlate" + suffix(dtype)
     S = V - 1
@@ -383,9 +387,13 @@ def warp_checks(dev, gen, dtype) -> dict:
             res = check_close(got, want, rtol=1e-3, atol_scale=1e-3)
             if res["n_outside"]:
                 raise AssertionError(f"{name} disagrees at {path} {stage}: {res}")
+            # No atomics, sums in a fixed order.
+            if not torch.equal(got, warp_correlate(*args)):
+                raise AssertionError(f"{name} is not bitwise repeatable at {path} {stage}")
             valid = (want != 0).float().mean().item()
             del got, want
-            ms = cuda_ms(lambda: warp_correlate(*args), iters=50, warmup=5)
+            ms = kernel_ms(warp_fwd_launch(name, args), iters=10, replays=5)
+            call_ms = cuda_ms(lambda: warp_correlate(*args), iters=50, warmup=5)
             plain_ms = cuda_ms(lambda: warp_correlate_plain(*args), iters=2, warmup=1)
             n_out = b * S * D * h * w
             es = args[0].element_size()
@@ -396,16 +404,19 @@ def warp_checks(dev, gen, dtype) -> dict:
             flops = n_out * (12 + valid * 10 * C)
             bd = bound(nbytes, flops, dtype)
             rows.append(dict(path=path + suffix(dtype), shape=[b * S, C, D, h, w], per_pass=1, ms=ms,
-                             plain_ms=plain_ms, nonzero_share=valid, **bd, **res))
-            print(f"{name} {path} {[b * S, C, D, h, w]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                             call_ms=call_ms, plain_ms=plain_ms, nonzero_share=valid, **bd, **res))
+            print(f"{name} {path} {[b * S, C, D, h, w]}: ms {ms:.4f} (per wrapper call {call_ms:.4f}) "
+                  f"plain_ms {plain_ms:.4f} "
                   f"bound_ms {bd['bound_ms']:.4f} ({bd['bound_by']}) "
                   f"max_abs_err {res['max_abs_err']:.3g} nonzero {valid:.3f}", flush=True)
             del args
             torch.cuda.empty_cache()
     replaces = ("transmvsnet_tpu/ops/pallas/warp_rowsweep.py:230" if dtype == torch.float32
                 else "transmvsnet_tpu/ops/pallas/warp_onehot.py:291")
-    return summarise(name, "transmvsnet_tpu_torch/csrc/warp_correlate.cu", replaces, rows,
-                     "inference" + suffix(dtype))
+    entry = summarise(name, "transmvsnet_tpu_torch/csrc/warp_correlate.cu", replaces, rows,
+                      "inference" + suffix(dtype))
+    entry["call_ms"] = sum(r["call_ms"] for r in rows if r["path"] == entry["main_path"])
+    return entry
 
 
 def check_all(got, want, rtol, atol_scale, what) -> dict:
@@ -567,12 +578,13 @@ def wsum_inputs(gen, dev, b, ph, pw, i, stage, C, D):
 
 
 def wsum_checks(dev, gen) -> dict:
-    """K7 (the view-weighted sum, bf16) at stages 2-3 of both paths."""
+    """K7 (the view-weighted sum, bf16) at stages 2-3 of both paths; "ms"
+    and "call_ms" as ``warp_checks``'."""
     from transmvsnet_tpu_torch.ops.cuda.warp_correlate import (
         warp_correlate_wsum,
         warp_correlate_wsum_plain,
     )
-    from transmvsnet_tpu_torch.tools.compare_dcn import valid_share
+    from transmvsnet_tpu_torch.tools.compare_dcn import kernel_ms, valid_share, warp_fwd_launch
 
     S = V - 1
     rows = []
@@ -590,7 +602,8 @@ def wsum_checks(dev, gen) -> dict:
                 raise AssertionError(f"warp_correlate_wsum disagrees at {path} {stage}: {res}")
             del got, want
             valid = valid_share(args)
-            ms = cuda_ms(lambda: warp_correlate_wsum(*args), iters=50, warmup=5)
+            ms = kernel_ms(warp_fwd_launch("warp_correlate_wsum", args), iters=10, replays=5)
+            call_ms = cuda_ms(lambda: warp_correlate_wsum(*args), iters=50, warmup=5)
             plain_ms = cuda_ms(lambda: warp_correlate_wsum_plain(*args), iters=2, warmup=1)
             n_samples = b * S * D * h * w
             # bf16 src and ref; float32 depth, view weights, output, rel.
@@ -601,14 +614,17 @@ def wsum_checks(dev, gen) -> dict:
             flops = n_samples * (14 + valid * 10 * C)
             bd = bound(nbytes, flops, torch.bfloat16)
             rows.append(dict(path=path + "_fused", shape=[b, S, C, D, h, w], per_pass=1, ms=ms,
-                             plain_ms=plain_ms, nonzero_share=valid, **bd, **res))
-            print(f"warp_correlate_wsum {path} {[b, S, C, D, h, w]}: ms {ms:.4f} plain_ms {plain_ms:.4f} "
+                             call_ms=call_ms, plain_ms=plain_ms, nonzero_share=valid, **bd, **res))
+            print(f"warp_correlate_wsum {path} {[b, S, C, D, h, w]}: ms {ms:.4f} (per wrapper call "
+                  f"{call_ms:.4f}) plain_ms {plain_ms:.4f} "
                   f"bound_ms {bd['bound_ms']:.4f} ({bd['bound_by']}) "
                   f"max_abs_err {res['max_abs_err']:.3g} valid {valid:.3f}", flush=True)
             del args
             torch.cuda.empty_cache()
-    return summarise("warp_correlate_wsum", "transmvsnet_tpu_torch/csrc/warp_correlate.cu",
-                     "transmvsnet_tpu/ops/pallas/warp_onehot.py:442", rows, "inference_fused")
+    entry = summarise("warp_correlate_wsum", "transmvsnet_tpu_torch/csrc/warp_correlate.cu",
+                      "transmvsnet_tpu/ops/pallas/warp_onehot.py:442", rows, "inference_fused")
+    entry["call_ms"] = sum(r["call_ms"] for r in rows if r["path"] == entry["main_path"])
+    return entry
 
 
 def wsum_bwd_checks(dev, gen) -> dict:

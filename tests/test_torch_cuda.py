@@ -636,14 +636,17 @@ def test_wsum_wrappers_refuse_float32_features_and_gradients(dev):
         warp_correlate_wsum(src.to(torch.bfloat16), ref.to(torch.bfloat16), sp, rp, depth, w)
 
 
-def warp_bwd_scene(gen, dev, dtype, C, H, W, kind):
-    """``warp_scene`` (baselines take samples out of the frame) or, with
-    kind "squeezed", source cameras of 1/20 the reference's focal length,
-    which put blocks of reference pixels onto a few source cells (their
-    corners coincide), or, with kind "outside", baselines that take every
-    sample out of the frame."""
-    src, ref, sp, rp, depth = warp_scene(gen, dev, dtype, C, H, W)
-    if kind == "squeezed":
+def warp_bwd_scene(gen, dev, dtype, C, H, W, kind, D=5):
+    """``warp_scene`` with D hypotheses (baselines take samples out of the
+    frame) or, with kind "squeezed", source cameras of 1/20 the reference's
+    focal length, which put blocks of reference pixels onto a few source
+    cells (their corners coincide), or, with kind "outside", baselines that
+    take every sample out of the frame, or, with kind "behind", every
+    hypothesis behind every camera."""
+    src, ref, sp, rp, depth = warp_scene(gen, dev, dtype, C, H, W, D=D)
+    if kind == "behind":
+        depth = -depth.abs()
+    elif kind == "squeezed":
         sp = sp.clone()
         sp[..., 0, 0] *= 0.05
         sp[..., 1, 1] *= 0.05
@@ -724,3 +727,57 @@ def test_warp_bwd_two_launches_agree(dev, kernel):
     for a, b, name in zip(first, second, ("dsrc", "dref", "dvw")):
         if a is not None:
             assert_close_f32(a, b, name)
+
+
+# K2 and K6: (features, launch counter attribute).
+WARP_FWD_KERNELS = {"k2_bf16": (torch.bfloat16, "launches"), "k6_f32": (torch.float32, "launches_f32")}
+
+
+def assert_within_warp_gate(got, want):
+    """The forward kernels' gate: float32 arithmetic up to summation order
+    and fused multiply-adds in the projection (~1e-5 px of position)."""
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("kernel", list(WARP_FWD_KERNELS))
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("H,W,kind,D", [(5, 9, "frame", 5), (40, 300, "frame", 7), (31, 47, "squeezed", 8),
+                                        (23, 130, "behind", 6)])
+def test_warp_fwd_kernels_match_plain(dev, kernel, C, H, W, kind, D):
+    """K2 and K6 at ragged shapes (no width a multiple of a block's pixels,
+    hypotheses no multiple of a group's round), with coinciding corners
+    (squeezed), and with every hypothesis behind the cameras (behind: the
+    output is exactly zero)."""
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import (
+        warp_correlate,
+        warp_correlate_plain,
+    )
+
+    dtype, attr = WARP_FWD_KERNELS[kernel]
+    gen = torch.Generator().manual_seed(C * 1000 + H * 7 + W + D)
+    args = warp_bwd_scene(gen, dev, dtype, C, H, W, kind, D=D)
+    before = getattr(warp_correlate, attr)
+    got = warp_correlate(*args)
+    torch.cuda.synchronize()
+    assert getattr(warp_correlate, attr) == before + 1
+    want = warp_correlate_plain(*args)
+    assert got.shape == want.shape == (2, 3, D, H, W) and got.dtype == torch.float32 and got.is_contiguous()
+    if kind == "behind":
+        assert not got.any()
+    else:
+        assert (want == 0).any() and (want != 0).float().mean() > 0.05
+        assert_within_warp_gate(got, want)
+
+
+@pytest.mark.parametrize("kernel", list(WARP_FWD_KERNELS))
+@pytest.mark.parametrize("C", [8, 16, 32])
+def test_warp_fwd_is_bitwise_repeatable(dev, kernel, C):
+    """No atomics and sums in a fixed order: two launches on the same
+    inputs agree bit for bit."""
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate
+
+    dtype, _ = WARP_FWD_KERNELS[kernel]
+    args = warp_bwd_scene(torch.Generator().manual_seed(47 + C), dev, dtype, C, 48, 130, "squeezed", D=9)
+    first, second = warp_correlate(*args), warp_correlate(*args)
+    torch.cuda.synchronize()
+    assert first.abs().max() > 0 and torch.equal(first, second)

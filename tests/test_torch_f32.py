@@ -16,7 +16,8 @@ versions. Inputs are made with numpy from a seed.
 - The gradients of ``ops/vjp.py``'s DCN and warp Functions against
   ``jax.vjp`` of the JAX package's ``deform_conv2d_with_vjp`` and
   ``warp_correlate_with_vjp`` around the row-sweep kernels.
-- The float32 cascade against the JAX ``use_pallas=True`` cascade.
+- The float32 cascade against the JAX ``use_pallas=True`` cascade is in
+  ``tests/test_torch_f32_cascade.py``.
 - One float32 train step through the new route against autograd of the
   plain forward.
 """
@@ -29,16 +30,12 @@ import numpy as np
 import pytest
 import torch
 
-from transmvsnet_tpu.config import ModelConfig as JaxModelConfig
-from transmvsnet_tpu.convert.torch_weights import convert_state_dict
-from transmvsnet_tpu.models.transmvsnet import TransMVSNet as JaxTransMVSNet
 from transmvsnet_tpu.ops.pallas.dcn_onehot import deform_conv2d_onehot
 from transmvsnet_tpu.ops.pallas.dcn_rowsweep import deform_conv2d_rowsweep
 from transmvsnet_tpu.ops.pallas.vjp import deform_conv2d_with_vjp
 from transmvsnet_tpu.ops.pallas.vjp import warp_correlate_with_vjp as jax_warp_correlate_with_vjp
 from transmvsnet_tpu.ops.pallas.warp_rowsweep import warp_correlate_rowsweep
 from transmvsnet_tpu_torch.config import ModelConfig
-from transmvsnet_tpu_torch.convert.jax_weights import state_dict_from_jax
 from transmvsnet_tpu_torch.data.example import example_train_batch
 from transmvsnet_tpu_torch.models.feature_net import DCN
 from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
@@ -52,8 +49,6 @@ from transmvsnet_tpu_torch.train.step import TrainState, make_train_step
 from pallas_inputs import make_inputs
 from test_pallas_dcn_rowsweep import smooth_offsets
 from test_pallas_rowsweep import scene
-from test_parity import dtu_like_inputs
-from test_torch_model import _perturb
 
 
 def nchw(a):
@@ -189,78 +184,7 @@ def test_warp_function_gradients_match_jax_rowsweep_vjp():
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5 * np.abs(want).max(), err_msg=name)
 
 
-# tests/test_torch_model.py's cascade with fewer hypotheses: the JAX
-# interpret-mode kernels make this the slow part of the file.
-NDEPTHS = (8, 8, 8)
-H = W = 64
-V = 3
-
-
-@pytest.fixture(scope="module")
-def cascade():
-    """Both cascades at float32 with the same weights, eval mode. The port's
-    seeded init after ``_perturb``, with the DCN offset convs given zero
-    weights and non-integer biases of about a pixel: offsets constant
-    across every row, inside the TPU kernels' row windows. The JAX side is
-    ``use_pallas=True`` in interpret mode: rows 5 and 6."""
-    imgs, projs, dv = dtu_like_inputs(V=V, H=H, W=W)
-    jprojs = {k: jnp.asarray(v) for k, v in projs.items()}
-    tmodel = TransMVSNet(ModelConfig(ndepths=NDEPTHS), device="cpu",
-                         generator=torch.Generator().manual_seed(0))
-    rng = np.random.RandomState(0)
-    sd = _perturb(tmodel.state_dict(), rng)
-    for k, v in sd.items():
-        if ".conv_offset_mask.weight" in k:
-            sd[k] = np.zeros_like(v)
-        elif ".conv_offset_mask.bias" in k:
-            frac = rng.uniform(0.15, 0.85, v.shape) * rng.choice([-1.0, 1.0], v.shape)
-            sd[k] = (frac + rng.randint(-1, 2, v.shape)).astype(v.dtype)
-    # The variable tree does not depend on use_pallas; the XLA model traces
-    # faster.
-    shapes = jax.eval_shape(
-        lambda k: JaxTransMVSNet(JaxModelConfig(ndepths=NDEPTHS)).init(
-            k, jnp.asarray(imgs), jprojs, jnp.asarray(dv)),
-        jax.random.PRNGKey(0),
-    )
-    template = jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype), shapes)
-    variables = convert_state_dict(sd, template, strict=True)
-    tmodel.load_state_dict(state_dict_from_jax(variables), strict=True)
-    tmodel.eval()
-    jmodel = JaxTransMVSNet(JaxModelConfig(ndepths=NDEPTHS, use_pallas=True, pallas_interpret=True))
-    # Applied eagerly: each kernel shape compiles once, in less memory than
-    # one jit of the whole cascade.
-    jout = jmodel.apply(variables, jnp.asarray(imgs), jprojs, jnp.asarray(dv), train=False)
-    with torch.no_grad():
-        tout = tmodel(torch.from_numpy(imgs), {k: torch.from_numpy(v) for k, v in projs.items()},
-                      torch.from_numpy(dv))
-    return jout, tout, dv
-
-
-@pytest.mark.parametrize("stage", ["stage1", "stage2", "stage3"])
-def test_cascade_prob_volume_matches_jax_pallas_f32(cascade, stage):
-    jout, tout, _ = cascade
-    want = np.asarray(jout[stage]["prob_volume"])
-    got = tout[stage]["prob_volume"].numpy()
-    assert got.shape == want.shape
-    # The row-sweep contract (test_warp_plain_f32_matches_rowsweep_interpret):
-    # >= 99.5% of probabilities within 1e-4, median error below 1e-5.
-    close = np.isclose(got, want, rtol=1e-4, atol=1e-4)
-    assert close.mean() > 0.995, close.mean()
-    assert np.median(np.abs(got - want)) < 1e-5
-
-
-@pytest.mark.parametrize("stage", ["stage1", "stage2", "stage3"])
-def test_cascade_depth_and_confidence_match_jax_pallas_f32(cascade, stage):
-    jout, tout, dv = cascade
-    want, got = np.asarray(jout[stage]["depth"]), tout[stage]["depth"].numpy()
-    # WTA depth is exact where the argmax agrees, up to float32 rounding of
-    # the refined hypotheses (~600: ulp 6e-5); a tap the TPU kernel drops
-    # may flip the argmax at a few pixels: >= 99.5% agree.
-    assert np.mean(np.abs(got - want) < 1e-3) >= 0.995
-    assert np.isfinite(got).all() and (got >= dv.min() - 50).all()
-    want = np.asarray(jout[stage]["photo_confidence"])
-    close = np.isclose(tout[stage]["photo_confidence"].numpy(), want, rtol=1e-4, atol=1e-4)
-    assert close.mean() >= 0.995, close.mean()
+NDEPTHS = (8, 8, 8)  # the train step's hypotheses per stage
 
 
 @pytest.mark.parametrize("dtype,route",

@@ -11,13 +11,12 @@ into the JAX tree by the JAX package's converter and back by the port's
 bridge; gradient trees map through the same bridge. One jitted JAX
 function serves the module.
 
-Also: the NaN guard, the schedule and Adam against optax, checkpoints
-(round trip, resume, ``tools/infer.py::load_checkpoint``) and the training
-CLI for one epoch on the CPU.
+Also: the NaN guard, the schedule and Adam against optax and checkpoints
+(round trip, resume, ``tools/infer.py::load_checkpoint``). The training
+CLI's epoch on the CPU is in ``tests/test_torch_train_cli.py``.
 """
 
 import copy
-import json
 
 import jax
 import jax.numpy as jnp
@@ -268,20 +267,3 @@ def test_checkpoint_round_trip_resume_and_infer_load(setup, tmp_path):
     load_checkpoint(weights_only, path)
     for k, v in state.model.state_dict().items():
         assert torch.equal(weights_only.state_dict()[k], v), k
-
-
-def test_train_cli_one_epoch_on_cpu_and_resume(tmp_path):
-    from transmvsnet_tpu_torch.tools import train
-
-    args = ["--dataset", "synthetic", "--device", "cpu", "--dtype", "float32", "--nviews", "3",
-            "--ndepths", "16,8,8", "--numdepth", "48", "--batch_size", "2", "--logdir", str(tmp_path),
-            "--summary_freq", "1"]
-    state = train.main(args + ["--epochs", "1"])
-    assert state.step == 2  # four synthetic samples, batch 2
-    assert (tmp_path / "model_000000.ckpt").exists()
-    records = [json.loads(line) for line in (tmp_path / "metrics.jsonl").read_text().splitlines()]
-    modes = {r["mode"] for r in records}
-    assert {"train", "train_epoch", "val", "val_epoch"} <= modes
-    assert all(np.isfinite(r["loss"]) for r in records)
-    state = train.main(args + ["--epochs", "2", "--resume"])
-    assert state.step == 4 and (tmp_path / "model_000001.ckpt").exists()

@@ -119,7 +119,7 @@ def test_profile_tallies_k4_and_k8_apart_with_their_copies():
         ns + "warp_correlate_wsum_bwd_to_channels_last<16>(...)": [60.0, 2],
         ns + "warp_correlate_wsum_bwd_main<16, false>(...)": [900.0, 2],
         ns + "warp_correlate_wsum_bwd_to_planar<16>(...)": [90.0, 2],
-        ns + "warp_correlate_kernel<__nv_bfloat16, 32>(...)": [500.0, 1],
+        ns + "warp_correlate_fwd_main<__nv_bfloat16, 32>(...)": [500.0, 1],
         ns + "warp_correlate_wsum_kernel<16>(...)": [400.0, 2],
     }
     got = profile.port_kernel_totals(by_name, passes=1)

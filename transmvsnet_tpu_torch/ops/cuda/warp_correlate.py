@@ -7,9 +7,11 @@ instantiation, K2) and ``warp_rowsweep.py::warp_correlate_rowsweep``
 (float32 features: its float instantiation, K6). ``warp_correlate_wsum``
 replaces ``warp_onehot.py::warp_correlate_wsum_onehot`` (bf16 features,
 K7): the view-weighted sum over the source views, without the per-view
-volume. All S source views of a batch go through one launch. Each wrapper
-launches its kernel for a CUDA tensor and takes its plain version only for
-a CPU tensor; anything the kernel does not take raises.
+volume. All S source views of a batch go through one call: K2/K6 launch
+two kernels (a channels-last copy of the source features into scratch that
+the wrapper allocates, then the body), K7 one. Each wrapper launches its
+kernels for a CUDA tensor and takes its plain version only for a CPU
+tensor; anything the kernels do not take raises.
 ``warp_correlate.launches`` counts K2's launches,
 ``warp_correlate.launches_f32`` K6's, ``warp_correlate_wsum.launches``
 K7's.
@@ -27,6 +29,9 @@ from transmvsnet_tpu_torch.ops.geometry import relative_projection
 
 SUPPORTED_CHANNELS = (8, 16, 32)
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
+# K2/K6's C entry point: src, ref, rel, depth, out; N, S, C, D, H, W, bf16;
+# the stream; the scratch src_cl. A build before the scratch ignores it.
+FORWARD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
 
 
 def _flat_views(src, ref, src_proj, ref_proj, depth):
@@ -122,17 +127,41 @@ def warp_correlate(
     B, S, C, D, H, W = _check(src, ref, src_proj, ref_proj, depth)
     rel = relative_rows(src_proj, ref_proj)
     out = torch.empty((B, S, D, H, W), dtype=torch.float32, device=src.device)
+    src_cl = forward_scratch(src)
     lib = build.library("warp_correlate")
-    fn = lib.warp_correlate_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    code = fn(
-        src.data_ptr(), ref.data_ptr(), rel.data_ptr(), depth.data_ptr(), out.data_ptr(),
-        B * S, S, C, D, H, W, int(src.dtype == torch.bfloat16), build.stream_handle(src),
-    )
+    code = launch_forward(lib, src, ref, rel, depth, out, src_cl, build.stream_handle(src))
     build.check(lib, "warp_correlate", code)
     build.count_launch(warp_correlate, src.dtype)
     return out
+
+
+def forward_scratch(src: torch.Tensor) -> torch.Tensor:
+    """K2/K6's scratch for src [B, S, C, H, W]: the source features
+    channels-last in their dtype, [records, C], each view's H*W records
+    between pads of W + 1 records (the kernel zeroes them), so that every
+    corner of a sample lies in bounds. Raises where the body's 32-bit
+    indices would overflow, or where a record is not 16-byte aligned."""
+    B, S, C, H, W = src.shape
+    records = B * S * (H * W + W + 1) + W + 1
+    if records * C >= 2**31:
+        raise ValueError("warp_correlate: the channels-last copy's B*S*(H*W + W + 1)*C must fit in 32 bits")
+    src_cl = torch.empty((records, C), dtype=src.dtype, device=src.device)
+    if src_cl.data_ptr() % 16 or (C * src_cl.element_size()) % 16:
+        raise ValueError("warp_correlate: the channels-last scratch needs 16-byte records")
+    return src_cl
+
+
+def launch_forward(lib, src, ref, rel, depth, out, src_cl, stream) -> int:
+    """Call K2/K6's C entry point of ``lib`` on contiguous tensors (src
+    [B, S, C, H, W], depth [B, D, H, W]); returns its error code."""
+    B, S, C, H, W = src.shape
+    fn = lib.warp_correlate_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = FORWARD_ARGTYPES
+    return fn(
+        src.data_ptr(), ref.data_ptr(), rel.data_ptr(), depth.data_ptr(), out.data_ptr(),
+        B * S, S, C, depth.shape[1], H, W, int(src.dtype == torch.bfloat16), stream, src_cl.data_ptr(),
+    )
 
 
 warp_correlate.launches = 0
@@ -197,16 +226,23 @@ def warp_correlate_wsum(
     rel = relative_rows(src_proj, ref_proj)
     out = torch.empty((B, D, H, W), dtype=torch.float32, device=src.device)
     lib = build.library("warp_correlate")
-    fn = lib.warp_correlate_wsum_forward
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    code = fn(
-        src.data_ptr(), ref.data_ptr(), rel.data_ptr(), depth.data_ptr(), vw.data_ptr(),
-        out.data_ptr(), B, S, C, D, H, W, build.stream_handle(src),
-    )
+    code = launch_wsum_forward(lib, src, ref, rel, depth, vw, out, build.stream_handle(src))
     build.check(lib, "warp_correlate", code)
     build.count_launch(warp_correlate_wsum, src.dtype)
     return out
+
+
+def launch_wsum_forward(lib, src, ref, rel, depth, vw, out, stream) -> int:
+    """Call K7's C entry point of ``lib`` on contiguous tensors (src
+    [B, S, C, H, W], depth [B, D, H, W]); returns its error code."""
+    B, S, C, H, W = src.shape
+    fn = lib.warp_correlate_wsum_forward
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    return fn(
+        src.data_ptr(), ref.data_ptr(), rel.data_ptr(), depth.data_ptr(), vw.data_ptr(),
+        out.data_ptr(), B, S, C, depth.shape[1], H, W, stream,
+    )
 
 
 warp_correlate_wsum.launches = 0

@@ -1,20 +1,21 @@
 """Time the DCN kernels (K1 ``csrc/dcn_fused.cu``, K5 ``csrc/dcn.cu`` and K3
-``csrc/dcn_bwd.cu``) and the warp-correlation backward (K4 and K8,
+``csrc/dcn_bwd.cu``), the warp-correlation forward (K2/K6 and K7,
+``csrc/warp_correlate.cu``) and backward (K4 and K8,
 ``csrc/warp_correlate_bwd.cu``) against another build of the same sources,
 on one card, in turns: typically the kernels of an earlier commit.
 
     git archive <commit> transmvsnet_tpu_torch/csrc | tar -x -C build/baseline
     python -m transmvsnet_tpu_torch.tools.compare_dcn \\
-        --baseline build/baseline/transmvsnet_tpu_torch/csrc [--warp] [--steps] [--forwards]
+        --baseline build/baseline/transmvsnet_tpu_torch/csrc [--warp] [--warp-fwd] [--steps] [--forwards]
 
 The baseline directory holds the other sources (and any header they
 include); each exports the C entry point that the wrappers in ``ops/cuda/``
 call, so the baseline runs under the same wrappers, with the libraries that
-they call swapped. K4's and K8's entry points take trailing arguments
-(scratch, K8's dvw flag) that the builds before them lack: under the
-x86-64 calling convention such a build ignores them, and the wrappers keep
-its contract (zeroed outputs, a dvw buffer), so it computes dvw always, as
-its steps did.
+they call swapped. K2/K6's, K4's and K8's entry points take trailing
+arguments (scratch, K8's dvw flag) that the builds before them lack: under
+the x86-64 calling convention such a build ignores them, and the wrappers
+keep its contract (zeroed outputs, a dvw buffer), so it computes dvw
+always, as its steps did.
 
 1. Kernels, each build first held to the plain version on the same inputs
    (the tolerances of ``chip_smoke.py``), then timed by CUDA events in turns
@@ -48,6 +49,19 @@ its steps did.
      step makes them (without dvw) and again with dvw.
    ms per shape and per step (each shape's ms summed over a step's calls),
    beside the share of samples that land on the source image.
+5. ``--warp-fwd``: K2 (bf16) and K6 (float32), each build held to the plain
+   version (``chip_smoke.py``'s gate) and timed in turns, with K7 (the
+   fused view sum) in the same turns as a witness, on two kinds of inputs:
+   - the checks' inputs (``sweep_inputs``) at the three plane sweeps of the
+     inference and the training path (K7 at stages 2-3);
+   - the arguments of every K2/K6 and K7 call of one real inference
+     forward at 1152x864, 5 views, in bf16, float32 and bf16 with the fused
+     view sum, from seeded weights (``capture_forward_calls``).
+   ms per shape and per forward (each shape's ms summed over a forward's
+   calls): the device time of the kernels' launches alone, replayed from a
+   CUDA graph (``kernel_ms``), since the wrappers' host time per call
+   exceeds these kernels'; beside it the wrapper's wall time per call and
+   the share of samples that land on the source image.
 
 Prints one JSON line per phase, each with the card's name and power limit;
 ``--no-kernels`` skips phase 1 (to time only the other phases in a shorter
@@ -67,7 +81,7 @@ import subprocess
 import torch
 
 # The libraries a build provides: the wrappers' names for csrc/<name>.cu.
-LIBRARIES = ("dcn_fused", "dcn", "dcn_bwd", "warp_correlate_bwd")
+LIBRARIES = ("dcn_fused", "dcn", "dcn_bwd", "warp_correlate", "warp_correlate_bwd")
 C, V = 32, 5
 # (batch, height, width) of each path that runs the DCN kernels.
 PATHS = {"inference": (1, 864, 1152), "train": (2, 512, 640)}
@@ -89,7 +103,7 @@ SWEEPS = (("stage1", 32, 48), ("stage2", 16, 32), ("stage3", 8, 8))
 # The training steps that --steps times and whose K4/K8 calls --warp
 # captures: (label, dtype, fused view sum).
 STEP_CONFIGS = (("bf16", "bfloat16", False), ("float32", "float32", False), ("bf16_fused", "bfloat16", True))
-WARP_GATE = (1e-3, 1e-3)  # rtol, atol_scale: chip_smoke.py's gate for K4 and K8
+WARP_GATE = (1e-3, 1e-3)  # rtol, atol_scale: chip_smoke.py's gate for K2, K4, K6, K7 and K8
 
 
 def head_shapes(h: int, w: int) -> list[tuple[int, int, int, int]]:
@@ -135,18 +149,19 @@ def outside(got, want, rtol: float, atol_scale: float) -> int:
 
 
 def parse_args(argv=None):
-    p = argparse.ArgumentParser(description="Time K1, K5 and K3 against another build of their sources")
-    p.add_argument("--baseline", required=True, help="directory of the other dcn_fused.cu, dcn.cu, dcn_bwd.cu")
+    p = argparse.ArgumentParser(description="Time the port's kernels against another build of their sources")
+    p.add_argument("--baseline", required=True, help="directory of the other build's sources (LIBRARIES)")
     p.add_argument("--steps", action="store_true", help="also time the training steps in turns")
     p.add_argument("--forwards", action="store_true", help="also time the inference forwards in turns")
     p.add_argument("--warp", action="store_true", help="also time K4 and K8 in turns")
+    p.add_argument("--warp-fwd", action="store_true", help="also time K2, K6 and K7 in turns")
     p.add_argument("--no-kernels", action="store_true", help="skip phase 1 (with --steps or --forwards)")
     return p.parse_args(argv)
 
 
 def build_baseline(src_dir: pathlib.Path) -> dict:
-    """Compile the three sources of ``src_dir`` with the port's nvcc flags
-    into build/kernels, all at once; name -> loaded library."""
+    """Compile the sources of ``src_dir`` named in LIBRARIES with the port's
+    nvcc flags into build/kernels, all at once; name -> loaded library."""
     from transmvsnet_tpu_torch.ops.cuda import build
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -193,6 +208,55 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(launch, iters: int = ITERS, replays: int = 3) -> float:
+    """Device milliseconds per call of ``launch``, a closure that only
+    launches kernels: ``iters`` calls captured in a CUDA graph, the graph
+    replayed and timed by CUDA events, so the host's time per call (which
+    can exceed a small kernel's) does not enter."""
+    launch()  # loads the kernels' module before the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            launch()
+    graph.replay()  # warm-up
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
+
+
+def warp_fwd_launch(kernel: str, args):
+    """A closure that launches K2/K6 ("warp_correlate", "warp_correlate_f32")
+    or K7 ("warp_correlate_wsum") of the current build on ``args`` (as the
+    wrappers take them) and nothing else: outputs, scratch and projection
+    rows are made once, as the wrapper makes them."""
+    from transmvsnet_tpu_torch.ops.cuda import build
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import (
+        forward_scratch,
+        launch_forward,
+        launch_wsum_forward,
+        relative_rows,
+    )
+
+    src, ref, sp, rp, depth = args[:5]
+    B, S, _, H, W = src.shape
+    rel = relative_rows(sp, rp)
+    lib = build.library("warp_correlate")
+    if kernel == "warp_correlate_wsum":
+        out = torch.empty((B, depth.shape[1], H, W), dtype=torch.float32, device=src.device)
+        return lambda: build.check(lib, "warp_correlate", launch_wsum_forward(
+            lib, src, ref, rel, depth, args[5], out, build.stream_handle(src)))
+    out = torch.empty((B, S, depth.shape[1], H, W), dtype=torch.float32, device=src.device)
+    src_cl = forward_scratch(src)
+    return lambda: build.check(lib, "warp_correlate", launch_forward(
+        lib, src, ref, rel, depth, out, src_cl, build.stream_handle(src)))
 
 
 def in_turns(builds: dict, fn) -> dict:
@@ -449,6 +513,119 @@ def warp_phase(builds: dict, dev) -> dict:
     return {"per_step_ms": totals, "shapes": rows}
 
 
+def inference_model(dev, dtype_name: str, fused: bool = False, ndepths=(48, 32, 8)):
+    """The cascade in eval mode from seeded weights, its DCN offset convs
+    set as ``chip_smoke.py``'s inference paths set them
+    (``FWD_REGIMES["inference"]``)."""
+    from transmvsnet_tpu_torch.config import ModelConfig
+    from transmvsnet_tpu_torch.models.feature_net import DCN
+    from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
+
+    gen = torch.Generator().manual_seed(0)
+    cfg = ModelConfig(ndepths=ndepths, compute_dtype=dtype_name, fused_view_sum=fused)
+    model = TransMVSNet(cfg, device=dev, generator=gen).eval()
+    k_scale, b_scale = FWD_REGIMES["inference"]
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, DCN):
+                w, bb = m.conv_offset_mask.weight, m.conv_offset_mask.bias
+                w.copy_(torch.randn(w.shape, generator=gen) * k_scale)
+                bb.copy_(torch.randn(bb.shape, generator=gen) * b_scale)
+    return model
+
+
+def capture_forward_calls(dev, dtype_name: str, fused: bool, shape=None, ndepths=(48, 32, 8)) -> list:
+    """The arguments of every K2/K6 and K7 call of one inference forward
+    (``shape`` = (batch, height, width), the inference path's by default)
+    of ``inference_model``: a list of (kernel, stage, args) in call order,
+    the arguments cloned; kernel is "warp_correlate" (K2/K6) or
+    "warp_correlate_wsum" (K7) and stage "stage1".. by resolution,
+    coarsest first."""
+    from transmvsnet_tpu_torch.data.example import example_inputs
+    from transmvsnet_tpu_torch.ops import vjp
+
+    b, ph, pw = shape or PATHS["inference"]
+    model = inference_model(dev, dtype_name, fused, ndepths)
+    imgs, projs, dv = example_inputs(B=b, V=V, H=ph, W=pw, num_hyp=192)
+    calls = []
+
+    def spy(name, fn):
+        def call(*args):
+            calls.append((name, tuple(a.detach().clone() for a in args)))
+            return fn(*args)
+        return call
+
+    own = vjp.warp_correlate, vjp.warp_correlate_wsum
+    vjp.warp_correlate = spy("warp_correlate", own[0])
+    vjp.warp_correlate_wsum = spy("warp_correlate_wsum", own[1])
+    try:
+        with torch.no_grad():
+            model(torch.from_numpy(imgs).to(dev), {k: torch.from_numpy(v).to(dev) for k, v in projs.items()},
+                  torch.from_numpy(dv).to(dev))
+    finally:
+        vjp.warp_correlate, vjp.warp_correlate_wsum = own
+    heights = sorted({args[0].shape[-2] for _, args in calls})
+    return [(name, f"stage{heights.index(args[0].shape[-2]) + 1}", args) for name, args in calls]
+
+
+def warp_fwd_calls(dev) -> list:
+    """(kernel, inputs, stage, args) of every row of the --warp-fwd phase;
+    kernel names as ``chip_smoke.py``'s kernel line."""
+    gen = torch.Generator().manual_seed(1)
+    S = V - 1
+    rows = []
+    for path, (b, ph, pw) in PATHS.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            kernel = "warp_correlate" + ("_f32" if dtype == torch.float32 else "")
+            for i, (stage, C, D) in enumerate(SWEEPS):
+                rows.append((kernel, f"checks_{path}", stage, sweep_inputs(gen, dev, b, ph, pw, i, stage, C, D, dtype)))
+        for i, (stage, C, D) in list(enumerate(SWEEPS))[1:]:
+            fwd = sweep_inputs(gen, dev, b, ph, pw, i, stage, C, D, torch.bfloat16)
+            vw = torch.rand(b, S, *fwd[0].shape[-2:], generator=gen).to(dev)
+            rows.append(("warp_correlate_wsum", f"checks_{path}", stage, (*fwd, vw)))
+    for label, dtype_name, fused in STEP_CONFIGS:
+        for name, stage, args in capture_forward_calls(dev, dtype_name, fused):
+            kernel = name + ("_f32" if args[0].dtype == torch.float32 else "")
+            rows.append((kernel, f"forward_{label}", stage, args))
+        torch.cuda.empty_cache()
+    return rows
+
+
+def warp_fwd_phase(builds: dict, dev) -> dict:
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import (
+        warp_correlate,
+        warp_correlate_plain,
+        warp_correlate_wsum,
+        warp_correlate_wsum_plain,
+    )
+
+    rows = []
+    for kernel, inputs, stage, args in warp_fwd_calls(dev):
+        if kernel == "warp_correlate_wsum":
+            fn, plain = warp_correlate_wsum, warp_correlate_wsum_plain
+        else:
+            fn, plain = warp_correlate, warp_correlate_plain
+        with torch.no_grad():
+            check_builds(builds, fn, args, plain(*args), WARP_GATE, f"{kernel} {inputs} {stage}")
+            ms = in_turns(builds, lambda: kernel_ms(warp_fwd_launch(kernel, args)))
+            call_ms = in_turns(builds, lambda: cuda_ms(lambda: fn(*args), ITERS))
+        row = {"kernel": kernel, "inputs": inputs, "stage": stage, "shape": list(args[0].shape),
+               "D": args[4].shape[1], "per_pass": 1, "valid_share": valid_share(args),
+               "ms": {k: sum(v) / len(v) for k, v in ms.items()}, "ms_turns": ms,
+               "call_ms": {k: sum(v) / len(v) for k, v in call_ms.items()}}
+        rows.append(row)
+        print(f"{kernel} {inputs} {stage} {row['shape']} D {row['D']} valid {row['valid_share']:.3f}: "
+              + " ".join(f"{k} {v:.4f} ms" for k, v in row["ms"].items())
+              + "; per wrapper call " + " ".join(f"{k} {v:.4f}" for k, v in row["call_ms"].items()), flush=True)
+        del args
+        torch.cuda.empty_cache()
+    totals = per_pass(rows, ("kernel", "inputs"))
+    for key, v in totals.items():
+        print(f"per forward {key}: baseline {v['baseline']:.4f} ms this {v['this']:.4f} ms "
+              f"ratio {v['this_over_baseline']:.4f}", flush=True)
+    return {"per_forward_ms": totals, "shapes": rows}
+
+
 def summarise_turns(turns: dict, key: str) -> dict:
     mean = {name: {k: sum(t[k] for t in v) / len(v) for k in v[0]} for name, v in turns.items()}
     spread = {name: max(t[key] for t in v) - min(t[key] for t in v) for name, v in turns.items()}
@@ -505,10 +682,7 @@ def step_phase(builds: dict, dev) -> dict:
 
 
 def forwards_phase(builds: dict, dev) -> dict:
-    from transmvsnet_tpu_torch.config import ModelConfig
     from transmvsnet_tpu_torch.data.example import example_inputs
-    from transmvsnet_tpu_torch.models.feature_net import DCN
-    from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
 
     out = {}
     b, ph, pw = PATHS["inference"]
@@ -517,16 +691,7 @@ def forwards_phase(builds: dict, dev) -> dict:
     t_projs = {k: torch.from_numpy(v).to(dev) for k, v in projs.items()}
     t_dv = torch.from_numpy(dv).to(dev)
     for label, dtype_name in (("bf16", "bfloat16"), ("float32", "float32")):
-        gen = torch.Generator().manual_seed(0)
-        model = TransMVSNet(ModelConfig(ndepths=(48, 32, 8), compute_dtype=dtype_name), device=dev,
-                            generator=gen).eval()
-        k_scale, b_scale = FWD_REGIMES["inference"]
-        with torch.no_grad():
-            for m in model.modules():
-                if isinstance(m, DCN):
-                    w, bb = m.conv_offset_mask.weight, m.conv_offset_mask.bias
-                    w.copy_(torch.randn(w.shape, generator=gen) * k_scale)
-                    bb.copy_(torch.randn(bb.shape, generator=gen) * b_scale)
+        model = inference_model(dev, dtype_name)
 
         def timed():
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -572,6 +737,8 @@ def main(argv=None):
         print(json.dumps({**head, "phase": "backward_kernel", **backward_phase(builds, dev)}), flush=True)
     if args.warp:
         print(json.dumps({**head, "phase": "warp_backward", **warp_phase(builds, dev)}), flush=True)
+    if args.warp_fwd:
+        print(json.dumps({**head, "phase": "warp_forward", **warp_fwd_phase(builds, dev)}), flush=True)
     if args.forwards:
         print(json.dumps({**head, "phase": "forwards", **forwards_phase(builds, dev)}), flush=True)
     if args.steps:
