@@ -18,8 +18,8 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this repository's
    the bf16 DCN shapes. K1 and K5 are checked (each also for bitwise
    repeatability) and timed at three offset regimes (see
    ``compare_dcn.FWD_REGIMES``), K1 beside the unfused bf16 route as a
-   yardstick; K3 at zero, 2-px and 6-px offsets (see DCN_BWD_OFFSETS). K2
-   and K6 are also checked for bitwise repeatability.
+   yardstick; K3 at zero, 2-px and 6-px offsets (see DCN_BWD_OFFSETS). K2,
+   K6 and K7 are also checked for bitwise repeatability.
 4. Inference paths: the cascade at 1152x864, 5 views, batch 1, 48/32/8
    hypotheses, random weights from a seeded generator, in bfloat16, in
    float32 and in bfloat16 with the fused view sum; a few requests with
@@ -579,7 +579,8 @@ def wsum_inputs(gen, dev, b, ph, pw, i, stage, C, D):
 
 def wsum_checks(dev, gen) -> dict:
     """K7 (the view-weighted sum, bf16) at stages 2-3 of both paths; "ms"
-    and "call_ms" as ``warp_checks``'."""
+    (the channels-last copy and the body) and "call_ms" as
+    ``warp_checks``'."""
     from transmvsnet_tpu_torch.ops.cuda.warp_correlate import (
         warp_correlate_wsum,
         warp_correlate_wsum_plain,
@@ -600,6 +601,9 @@ def wsum_checks(dev, gen) -> dict:
             res = check_close(got, want, rtol=1e-3, atol_scale=1e-3)
             if res["n_outside"]:
                 raise AssertionError(f"warp_correlate_wsum disagrees at {path} {stage}: {res}")
+            # No atomics, the views summed in a fixed order.
+            if not torch.equal(got, warp_correlate_wsum(*args)):
+                raise AssertionError(f"warp_correlate_wsum is not bitwise repeatable at {path} {stage}")
             del got, want
             valid = valid_share(args)
             ms = kernel_ms(warp_fwd_launch("warp_correlate_wsum", args), iters=10, replays=5)

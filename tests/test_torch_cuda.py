@@ -636,14 +636,14 @@ def test_wsum_wrappers_refuse_float32_features_and_gradients(dev):
         warp_correlate_wsum(src.to(torch.bfloat16), ref.to(torch.bfloat16), sp, rp, depth, w)
 
 
-def warp_bwd_scene(gen, dev, dtype, C, H, W, kind, D=5):
-    """``warp_scene`` with D hypotheses (baselines take samples out of the
-    frame) or, with kind "squeezed", source cameras of 1/20 the reference's
+def warp_bwd_scene(gen, dev, dtype, C, H, W, kind, D=5, S=3):
+    """``warp_scene`` with S source views and D hypotheses (baselines take
+    samples out of the frame) or, with kind "squeezed", source cameras of 1/20 the reference's
     focal length, which put blocks of reference pixels onto a few source
     cells (their corners coincide), or, with kind "outside", baselines that
     take every sample out of the frame, or, with kind "behind", every
     hypothesis behind every camera."""
-    src, ref, sp, rp, depth = warp_scene(gen, dev, dtype, C, H, W, D=D)
+    src, ref, sp, rp, depth = warp_scene(gen, dev, dtype, C, H, W, S=S, D=D)
     if kind == "behind":
         depth = -depth.abs()
     elif kind == "squeezed":
@@ -729,8 +729,10 @@ def test_warp_bwd_two_launches_agree(dev, kernel):
             assert_close_f32(a, b, name)
 
 
-# K2 and K6: (features, launch counter attribute).
-WARP_FWD_KERNELS = {"k2_bf16": (torch.bfloat16, "launches"), "k6_f32": (torch.float32, "launches_f32")}
+# K2, K6 and K7: (features, wrapper, launch counter attribute).
+WARP_FWD_KERNELS = {"k2_bf16": (torch.bfloat16, "warp_correlate", "launches"),
+                    "k6_f32": (torch.float32, "warp_correlate", "launches_f32"),
+                    "k7_wsum": (torch.bfloat16, "warp_correlate_wsum", "launches")}
 
 
 def assert_within_warp_gate(got, want):
@@ -739,29 +741,50 @@ def assert_within_warp_gate(got, want):
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-3 * want.abs().max().item())
 
 
-@pytest.mark.parametrize("kernel", list(WARP_FWD_KERNELS))
-@pytest.mark.parametrize("C", [8, 16, 32])
-@pytest.mark.parametrize("H,W,kind,D", [(5, 9, "frame", 5), (40, 300, "frame", 7), (31, 47, "squeezed", 8),
-                                        (23, 130, "behind", 6)])
-def test_warp_fwd_kernels_match_plain(dev, kernel, C, H, W, kind, D):
-    """K2 and K6 at ragged shapes (no width a multiple of a block's pixels,
-    hypotheses no multiple of a group's round), with coinciding corners
-    (squeezed), and with every hypothesis behind the cameras (behind: the
-    output is exactly zero)."""
+def warp_fwd_call(kernel, gen, dev, C, H, W, kind, D, S=3):
+    """(kernel call, its plain version, launch counter (wrapper, attribute),
+    output shape) of one of WARP_FWD_KERNELS on a scene of batch 2; K7's
+    view weights are zero over a band of rows of one view."""
     from transmvsnet_tpu_torch.ops.cuda.warp_correlate import (
         warp_correlate,
         warp_correlate_plain,
+        warp_correlate_wsum,
+        warp_correlate_wsum_plain,
     )
 
-    dtype, attr = WARP_FWD_KERNELS[kernel]
+    dtype, wrapper, attr = WARP_FWD_KERNELS[kernel]
+    args = warp_bwd_scene(gen, dev, dtype, C, H, W, kind, D=D, S=S)
+    if wrapper == "warp_correlate":
+        return ((lambda: warp_correlate(*args)), (lambda: warp_correlate_plain(*args)), (warp_correlate, attr),
+                (2, S, D, H, W))
+    vw = torch.rand(2, S, H, W, generator=gen)
+    vw[:, S // 2, : H // 3] = 0.0
+    vw = vw.to(dev)
+    return ((lambda: warp_correlate_wsum(*args, vw)), (lambda: warp_correlate_wsum_plain(*args, vw)),
+            (warp_correlate_wsum, attr), (2, D, H, W))
+
+
+@pytest.mark.parametrize("kernel", list(WARP_FWD_KERNELS))
+@pytest.mark.parametrize("C", [8, 16, 32])
+@pytest.mark.parametrize("H,W,kind,D", [(5, 9, "frame", 5), (40, 300, "frame", 7), (31, 47, "squeezed", 8),
+                                        (23, 130, "behind", 6), (24, 70, "frame", 19)])
+@pytest.mark.parametrize("S", [1, 3, 4, 6])
+def test_warp_fwd_kernels_match_plain(dev, kernel, C, H, W, kind, D, S):
+    """K2, K6 and K7 at ragged shapes (no width a multiple of a block's
+    pixels, hypotheses no multiple of a group's round or of K7's chunk;
+    with D = 19 each of the two batches spans three of K7's chunks of 8,
+    the last one partly full), at one source view, the model's four and
+    counts no power of two (3, 6), with coinciding corners (squeezed), and
+    with every hypothesis behind the cameras (behind: the output is
+    exactly zero)."""
     gen = torch.Generator().manual_seed(C * 1000 + H * 7 + W + D)
-    args = warp_bwd_scene(gen, dev, dtype, C, H, W, kind, D=D)
-    before = getattr(warp_correlate, attr)
-    got = warp_correlate(*args)
+    call, plain, (counter, attr), shape = warp_fwd_call(kernel, gen, dev, C, H, W, kind, D, S)
+    before = getattr(counter, attr)
+    got = call()
     torch.cuda.synchronize()
-    assert getattr(warp_correlate, attr) == before + 1
-    want = warp_correlate_plain(*args)
-    assert got.shape == want.shape == (2, 3, D, H, W) and got.dtype == torch.float32 and got.is_contiguous()
+    assert getattr(counter, attr) == before + 1
+    want = plain()
+    assert got.shape == want.shape == shape and got.dtype == torch.float32 and got.is_contiguous()
     if kind == "behind":
         assert not got.any()
     else:
@@ -769,15 +792,47 @@ def test_warp_fwd_kernels_match_plain(dev, kernel, C, H, W, kind, D):
         assert_within_warp_gate(got, want)
 
 
+@pytest.mark.parametrize("C", [8, 16, 32])
+def test_wsum_keeps_the_nan_of_a_view_of_weight_zero(dev, C):
+    """K7 gives NaN wherever a view of weight zero samples NaN features
+    with a corner on the plane, as its plain version does (0 * NaN; the
+    plain version is NaN at every output, for it also multiplies the
+    corners off the plane by zero). Its other outputs are the other views'
+    sum."""
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import (
+        warp_correlate_plain,
+        warp_correlate_wsum,
+        warp_correlate_wsum_plain,
+    )
+
+    gen = torch.Generator().manual_seed(61 + C)
+    src, ref, sp, rp, depth = warp_bwd_scene(gen, dev, torch.bfloat16, C, 24, 70, "frame", D=11)
+    vw = torch.rand(2, 3, 24, 70, generator=gen)
+    vw[:, 1] = 0.0
+    vw = vw.to(dev)
+    # Where view 1's samples have a corner of positive weight on the plane.
+    ones = torch.ones_like(src)
+    on_plane = warp_correlate_plain(ones, torch.ones_like(ref), sp, rp, depth)[:, 1] > 0
+    src[:, 1] = 0.0
+    others = warp_correlate_wsum_plain(src, ref, sp, rp, depth, vw)
+    src[:, 1] = float("nan")
+    got = warp_correlate_wsum(src, ref, sp, rp, depth, vw)
+    torch.cuda.synchronize()
+    assert warp_correlate_wsum_plain(src, ref, sp, rp, depth, vw).isnan().all()
+    assert 0.05 < on_plane.float().mean() < 0.95
+    assert got[on_plane].isnan().all()
+    finite = ~got.isnan()
+    assert finite.any()
+    assert_within_warp_gate(got[finite], others[finite])
+
+
 @pytest.mark.parametrize("kernel", list(WARP_FWD_KERNELS))
 @pytest.mark.parametrize("C", [8, 16, 32])
 def test_warp_fwd_is_bitwise_repeatable(dev, kernel, C):
     """No atomics and sums in a fixed order: two launches on the same
     inputs agree bit for bit."""
-    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate
-
-    dtype, _ = WARP_FWD_KERNELS[kernel]
-    args = warp_bwd_scene(torch.Generator().manual_seed(47 + C), dev, dtype, C, 48, 130, "squeezed", D=9)
-    first, second = warp_correlate(*args), warp_correlate(*args)
+    gen = torch.Generator().manual_seed(47 + C)
+    call, _, _, _ = warp_fwd_call(kernel, gen, dev, C, 48, 130, "squeezed", 9)
+    first, second = call(), call()
     torch.cuda.synchronize()
     assert first.abs().max() > 0 and torch.equal(first, second)

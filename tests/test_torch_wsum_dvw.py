@@ -120,13 +120,14 @@ def test_profile_tallies_k4_and_k8_apart_with_their_copies():
         ns + "warp_correlate_wsum_bwd_main<16, false>(...)": [900.0, 2],
         ns + "warp_correlate_wsum_bwd_to_planar<16>(...)": [90.0, 2],
         ns + "warp_correlate_fwd_main<__nv_bfloat16, 32>(...)": [500.0, 1],
-        ns + "warp_correlate_wsum_kernel<16>(...)": [400.0, 2],
+        ns + "warp_correlate_wsum_fwd_to_channels_last<16>(...)": [60.0, 2],
+        ns + "warp_correlate_wsum_fwd_main<16, 4>(...)": [340.0, 2],
     }
     got = profile.port_kernel_totals(by_name, passes=1)
     assert got["warp_correlate_bwd"] == {"ms_per_pass": 2.25, "launches_per_pass": 9}
     assert got["warp_correlate_wsum_bwd"] == {"ms_per_pass": 1.05, "launches_per_pass": 6}
     assert got["warp_correlate_kernel"] == {"ms_per_pass": 0.5, "launches_per_pass": 1}
-    assert got["warp_correlate_wsum_kernel"] == {"ms_per_pass": 0.4, "launches_per_pass": 2}
+    assert got["warp_correlate_wsum_kernel"] == {"ms_per_pass": 0.4, "launches_per_pass": 4}
 
 
 def test_planted_fault_wrapper_passes_the_dvw_flag_through():

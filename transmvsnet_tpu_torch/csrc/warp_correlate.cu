@@ -8,7 +8,7 @@
 //   transmvsnet_tpu/ops/pallas/warp_rowsweep.py::warp_correlate_rowsweep
 //     (float32 features; their float instantiation, K6), and
 //   transmvsnet_tpu/ops/pallas/warp_onehot.py::warp_correlate_wsum_onehot
-//     (bf16 features; warp_correlate_wsum_kernel, K7).
+//     (bf16 features; the kernels named warp_correlate_wsum_fwd_*, K7).
 // K2/K6: for source view n = b*S + s, hypothesis d and reference pixel
 // (y, x),
 //   [X Y Z] = rel[n] @ [x*z, y*z, z, 1],  z = depth[b, d, y, x]
@@ -31,46 +31,55 @@
 // every gather made L1-resident, was no faster, and each cut in its
 // instructions per sample made it faster.
 //
-// K2/K6, two launches per call on the caller's stream:
-// 1. Prologue (warp_correlate_fwd_to_channels_last): src [N, C, H, W] is
-//    copied channels-last in its own dtype into the caller's scratch, with
-//    16-byte loads and stores through a shared-memory tile: each view's
-//    H*W records of C channels, between pads of W + 1 records of zeros. A
-//    corner's C channels are then one run of 16-128 bytes, where the planar
-//    layout put them in C lines H*W apart, and every corner of a sample
-//    with a corner on the plane lies in bounds without a clamp.
-// 2. Main (warp_correlate_fwd_main): a group of G lanes serves one (view,
-//    pixel), each lane K channels: two 16-byte records (16 bf16 or 8
-//    float32), or all C where fewer, so G = 2 / 1 / 1 in bf16 and 4 / 2 / 1
-//    in float32 for C = 32 / 16 / 8. Each lane holds its channels of the
-//    reference pixel in registers. A block covers a tile of 8 rows; a
-//    warp's groups are neighbouring pixels of a row. The group walks the
-//    hypotheses G at a time: lane l sets up hypothesis d0 + l (the
-//    projection, the Z test, floors, clamps, validity and the four corner
-//    weights) and the group takes the G samples in turn by shuffles (the
-//    anchor's offset and the weights). A sample with no corner on the
-//    plane costs a test; otherwise each lane loads its records of the four
-//    corners and keeps one partial dot product per sample. A transposing
-//    reduction by recursive halving (G - 1 shuffle-adds per lane) leaves
-//    lane l with hypothesis d0 + l, which it divides by C and writes.
-//    Blocks run the S views of a pixel tile one after another, so the
-//    tile's depth and reference values are read from memory once.
+// Two launches per call on the caller's stream, under each kernel's own
+// names:
+// 1. Prologue (warp_correlate_fwd_to_channels_last, K7's
+//    warp_correlate_wsum_fwd_to_channels_last; one device function,
+//    to_channels_last): src [N, C, H, W] is copied channels-last in its own
+//    dtype into the caller's scratch, with 16-byte loads and stores through
+//    a shared-memory tile: each view's H*W records
+//    of C channels, between pads of W + 1 records of zeros. A corner's C
+//    channels are then one run of 16-128 bytes, where the planar layout put
+//    them in C lines H*W apart, and every corner of a sample with a corner
+//    on the plane lies in bounds without a clamp.
+// 2. Body (warp_correlate_fwd_main, K7's warp_correlate_wsum_fwd_main; the
+//    two share the layout and a group's round, round_total): a group of G
+//    lanes serves one (view, pixel), each lane K channels: two
+//    16-byte records (16 bf16 or 8 float32), or all C where fewer, so G =
+//    2 / 1 / 1 in bf16 and 4 / 2 / 1 in float32 for C = 32 / 16 / 8. Each
+//    lane holds its channels of the reference pixel in registers. A block
+//    covers a tile of 8 rows; a warp's pixels are neighbours in a row. The
+//    group walks the hypotheses in rounds of G: lane l sets up hypothesis
+//    d0 + l (the projection, the Z test, floors, clamps, validity and the
+//    four corner weights) and the group takes the G samples in turn by
+//    shuffles (the anchor's offset and the weights). A sample with no
+//    corner on the plane costs a test; otherwise each lane loads its
+//    records of the four corners and keeps one partial dot product per
+//    sample. A transposing reduction by recursive halving (G - 1
+//    shuffle-adds per lane) leaves lane l with hypothesis d0 + l.
+//    K2/K6 divide it by C and write it. Their blocks hold one view each and
+//    run the S views of a pixel tile one after another, so the tile's depth
+//    and reference values are read from memory once.
+//    K7's blocks hold one chunk of 8 hypotheses of a pixel tile each, and
+//    run the chunks of a tile one after another. The group walks the S
+//    views in turn, each view's weight, projection and records set up once
+//    per chunk, and adds each round's total, weighted, to the lane's sum of
+//    that hypothesis in a register. Lane l then divides its sums by C and
+//    writes them. A view of weight zero takes its samples all the same, so
+//    a NaN or Inf it samples reaches the output, as in the plain version
+//    (0 * NaN). A warp's lanes work on one view at a time, so their samples
+//    land on the source plane together, as K2's do; chunks, not views, give
+//    the lanes that stage 2 needs, and no sum crosses lanes. The two bodies
+//    are two kernels: one device body with a K7 flag compiled K6 at C = 16
+//    ~2% slower on the H100 (PERF.md).
 // The sample arithmetic (the projection, !(Z >= 1e-6) as invalid, NaN
 // included, the floor, the clamp to [-2, size + 1], per-corner validity and
-// weights) is that of the plain version and of K7, at every pixel, frame
-// edges included, with one reciprocal of Z in place of two divisions (~2
-// ulp of the sample position). No atomics and a fixed order of sums: the
-// result is bitwise repeatable from call to call, and matches the plain
-// version within 1e-3*|p| + 1e-3*max|p|.
-//
-// K7 runs one thread per (batch, pixel), looping over the hypotheses
-// outside and the views inside, with the batch's S projection rows in
-// shared memory, so depth and the reference features are read once per
-// (batch, hypothesis, pixel) and each output is written once, without
-// atomics. Each thread keeps its C reference values in registers and
-// gathers each channel from the planar source. No TPU-style row windows or
-// one-hot matmuls: the kernels gather directly and match the plain versions
-// at every pixel.
+// weights) is that of the plain versions at every pixel, frame edges
+// included, with one reciprocal of Z in place of two divisions (~2 ulp of
+// the sample position). No atomics and a fixed order of sums: the results
+// are bitwise repeatable from call to call, and match the plain versions
+// within 1e-3*|p| + 1e-3*max|p|. No TPU-style row windows or one-hot
+// matmuls: the kernels gather directly.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -84,45 +93,10 @@ constexpr int kThreads = 256;
 __device__ __forceinline__ float load(const float* p) { return *p; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 
-// Sum over the C channels of bilinear(src planes sb, X/Z, Y/Z) * refv[c];
-// zero where Z < 1e-6 or every corner lies off the H x W plane.
-template <typename T, int C>
-__device__ __forceinline__ float correlate(const T* sb, const float* refv, float X, float Y,
-                                           float Z, int H, int W) {
-  float acc = 0.f;
-  if (!(Z >= 1e-6f)) return acc;
-  const long long HW = (long long)H * W;
-  const float px = X / Z, py = Y / Z;
-  // Clamp before the int cast; beyond [-2, size+1] every corner is zero.
-  const float x0f = fminf(fmaxf(floorf(px), -2.f), (float)W + 1.f);
-  const float y0f = fminf(fmaxf(floorf(py), -2.f), (float)H + 1.f);
-  const float wx = px - floorf(px), wy = py - floorf(py);
-  const int x0 = (int)x0f, y0 = (int)y0f, x1 = x0 + 1, y1 = y0 + 1;
-  const bool vy0 = y0 >= 0 && y0 < H, vy1 = y1 >= 0 && y1 < H;
-  const bool vx0 = x0 >= 0 && x0 < W, vx1 = x1 >= 0 && x1 < W;
-  if (!((vy0 || vy1) && (vx0 || vx1))) return acc;
-  const float w00 = (vy0 && vx0) ? (1.f - wx) * (1.f - wy) : 0.f;
-  const float w01 = (vy0 && vx1) ? wx * (1.f - wy) : 0.f;
-  const float w10 = (vy1 && vx0) ? (1.f - wx) * wy : 0.f;
-  const float w11 = (vy1 && vx1) ? wx * wy : 0.f;
-  const int cy0 = min(max(y0, 0), H - 1), cy1 = min(max(y1, 0), H - 1);
-  const int cx0 = min(max(x0, 0), W - 1), cx1 = min(max(x1, 0), W - 1);
-  const long long i00 = (long long)cy0 * W + cx0, i01 = (long long)cy0 * W + cx1;
-  const long long i10 = (long long)cy1 * W + cx0, i11 = (long long)cy1 * W + cx1;
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const T* sc = sb + c * HW;
-    const float v = w00 * load(sc + i00) + w01 * load(sc + i01) + w10 * load(sc + i10) +
-                    w11 * load(sc + i11);
-    acc = fmaf(v, refv[c], acc);
-  }
-  return acc;
-}
-
-// K2/K6's layout of a group: K channels (two 16-byte records, or all C
-// where fewer) per lane, G lanes per (view, pixel), P pixels per block,
-// which covers a tile of TH rows of TW pixels: a warp's groups are
-// neighbouring pixels of a row.
+// The body's layout: K channels (two 16-byte records, or all C where fewer)
+// per lane, G lanes per (view, pixel), P pixels per block, which covers a
+// tile of TH rows of TW pixels: a warp's groups are neighbouring pixels of
+// a row.
 template <typename T, int C>
 struct Layout {
   static constexpr int K = 32 / (int)sizeof(T) < C ? 32 / (int)sizeof(T) : C;
@@ -142,8 +116,8 @@ __host__ __device__ constexpr int copy_tile(int C) { return 2048 / C; }
 // moves bits. A pixel's C channels are 16-128 bytes, so src_cl is written
 // in 16-byte stores; src is read in 16-byte loads where H*W allows.
 template <typename E, int C>
-__global__ void __launch_bounds__(kThreads) warp_correlate_fwd_to_channels_last(
-    const E* __restrict__ src, E* __restrict__ src_cl, long long HW, int pad) {
+__device__ __forceinline__ void to_channels_last(const E* __restrict__ src, E* __restrict__ src_cl,
+                                                 long long HW, int pad) {
   constexpr int kTile = copy_tile(C);
   constexpr int kPer = 16 / sizeof(E);  // elements per 16-byte load or store
   static_assert(C % kPer == 0, "a pixel's channels fill whole 16-byte stores");
@@ -281,8 +255,52 @@ __device__ __forceinline__ float transpose_sum(float (&p)[G], int lane) {
   return p[0];
 }
 
-// Block (a tile of TH x TW pixels of one view); blockIdx.x = tile * N + n,
-// so the views of a tile run together.
+// A view's projection of a reference pixel: [X Y Z] = b * z + t.
+struct Proj {
+  float bx, by, bz, tx, ty, tz;
+};
+
+__device__ __forceinline__ Proj projection(const float* __restrict__ rel, int n, float fx, float fy) {
+  float r[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) r[i] = __ldg(rel + n * 12 + i);
+  return {r[0] * fx + r[1] * fy + r[2], r[4] * fx + r[5] * fy + r[6], r[8] * fx + r[9] * fy + r[10],
+          r[3], r[7], r[11]};
+}
+
+// One round of a group on one view: lane l sets up hypothesis d0 + l at
+// depth zd where `on`, the group takes the G samples in turn by shuffles,
+// and the transposing reduction leaves lane l with the group's sum over
+// the C channels of hypothesis d0 + l. Every lane of the warp calls it.
+template <typename T, int C, int K, int G>
+__device__ __forceinline__ float round_total(const T* sb, const float (&refv)[K], const Proj& p, float zd,
+                                             bool on, int lane, int H, int W) {
+  Sample mine{0u, {0.f, 0.f, 0.f, 0.f}};
+  if (on) mine = setup(p.bx * zd + p.tx, p.by * zd + p.ty, p.bz * zd + p.tz, H, W);
+  float part[G];
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    Sample s = mine;
+    if (G > 1) {
+      s.at = __shfl_sync(0xffffffffu, s.at, j, G);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s.w[c] = __shfl_sync(0xffffffffu, s.w[c], j, G);
+    }
+    part[j] = sample_dot<T, C, K>(sb, refv, s, W);
+  }
+  return transpose_sum<G>(part, lane);
+}
+
+// K2/K6's two kernels.
+template <typename E, int C>
+__global__ void __launch_bounds__(kThreads) warp_correlate_fwd_to_channels_last(
+    const E* __restrict__ src, E* __restrict__ src_cl, long long HW, int pad) {
+  to_channels_last<E, C>(src, src_cl, HW, pad);
+}
+
+// K2/K6's body. Block (a tile of TH x TW pixels of view n), blockIdx.x =
+// tile * N + n: the group walks the hypotheses G at a time, lane l setting
+// up hypothesis d0 + l, and writes out [B*S, D, H, W].
 template <typename T, int C>
 __global__ void __launch_bounds__(kThreads) warp_correlate_fwd_main(
     const T* __restrict__ src_cl,       // the views' [H, W, C] records, padded
@@ -305,14 +323,8 @@ __global__ void __launch_bounds__(kThreads) warp_correlate_fwd_main(
   const int x = active ? tx : 0, y = active ? ty : 0;
   const long long pa = (long long)y * W + x;
   const int b = n / S;
-
-  float r[12];
-#pragma unroll
-  for (int i = 0; i < 12; ++i) r[i] = __ldg(rel + n * 12 + i);
   const float fx = (float)x, fy = (float)y;
-  const float bx = r[0] * fx + r[1] * fy + r[2];
-  const float by = r[4] * fx + r[5] * fy + r[6];
-  const float bz = r[8] * fx + r[9] * fy + r[10];
+  const Proj p = projection(rel, n, fx, fy);
 
   float refv[K];
   const T* rb = ref + ((long long)b * C + lane * K) * HW + pa;
@@ -325,72 +337,91 @@ __global__ void __launch_bounds__(kThreads) warp_correlate_fwd_main(
   float* ob = out + (long long)n * D * HW + pa + lane * HW;
   float z = active && lane < D ? *zb : 0.f;
   for (int d0 = 0; d0 < D; d0 += G, zb += G * HW, ob += G * HW) {
-    // Lane l sets up hypothesis d0 + l, after reading its next depth; the
-    // group's lanes take the G samples in turn.
+    // Lane l sets up hypothesis d0 + l, after reading its next depth.
     const int d = d0 + lane;
     const float zd = z;
     z = active && d + G < D ? zb[G * HW] : 0.f;
-    Sample mine{0u, {0.f, 0.f, 0.f, 0.f}};
-    if (active && d < D) mine = setup(bx * zd + r[3], by * zd + r[7], bz * zd + r[11], H, W);
-    float part[G];
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-      Sample s = mine;
-      if (G > 1) {
-        s.at = __shfl_sync(0xffffffffu, s.at, j, G);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s.w[c] = __shfl_sync(0xffffffffu, s.w[c], j, G);
-      }
-      part[j] = sample_dot<T, C, K>(sb, refv, s, W);
-    }
-    const float total = transpose_sum<G>(part, lane);
+    const float total = round_total<T, C, K, G>(sb, refv, p, zd, active && d < D, lane, H, W);
     if (active && d < D) *ob = total * (1.f / (float)C);
   }
 }
 
-// Grid (pixel blocks, B); dynamic shared memory holds the batch's S x 12
-// projection entries.
-template <typename T, int C>
-__global__ void __launch_bounds__(kThreads) warp_correlate_wsum_kernel(
-    const T* __restrict__ src,          // [B*S, C, H, W]
-    const T* __restrict__ ref,          // [B, C, H, W]
-    const float* __restrict__ rel,      // [B*S, 3, 4]
-    const float* __restrict__ depth,    // [B, D, H, W]
-    const float* __restrict__ vw,       // [B, S, H, W]
-    float* __restrict__ out,            // [B, D, H, W]
-    int S, int D, int H, int W) {
-  extern __shared__ float rs[];  // [S, 12]
-  const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < S * 12; i += blockDim.x) rs[i] = rel[(long long)b * S * 12 + i];
-  __syncthreads();
+// K7's two kernels (bf16 features).
+template <int C>
+__global__ void __launch_bounds__(kThreads) warp_correlate_wsum_fwd_to_channels_last(
+    const unsigned short* __restrict__ src, unsigned short* __restrict__ src_cl, long long HW, int pad) {
+  to_channels_last<unsigned short, C>(src, src_cl, HW, pad);
+}
+
+// Hypotheses per chunk of K7 (a multiple of G): a lane keeps its sums of
+// a chunk in registers while it walks the views.
+constexpr int kChunk = 8;
+
+// K7's body. Block (a tile of TH x TW pixels of unit u), blockIdx.x = tile
+// * U + u, u = b * ceil(D / kChunk) + c: the group takes hypotheses
+// c * kChunk, ... of batch b, lane l hypothesis c * kChunk + l of each of
+// the chunk's rounds of G. For each view in turn (its weight, projection
+// and records set up once) it adds the weighted totals of the rounds to
+// sums in registers, then writes them to out [B, D, H, W].
+template <int C>
+__global__ void __launch_bounds__(kThreads) warp_correlate_wsum_fwd_main(
+    const __nv_bfloat16* __restrict__ src_cl,  // the views' [H, W, C] records, padded
+    const __nv_bfloat16* __restrict__ ref,     // [B, C, H, W]
+    const float* __restrict__ rel,             // [B*S, 3, 4]
+    const float* __restrict__ depth,           // [B, D, H, W]
+    const float* __restrict__ vw,              // [B, S, H, W]
+    float* __restrict__ out,                   // [B, D, H, W]
+    int U, int S, int D, int H, int W) {
+  using T = __nv_bfloat16;
+  using L = Layout<T, C>;
+  constexpr int K = L::K, G = L::G;
+  constexpr int R = kChunk / G;  // rounds per chunk
+  static_assert(kChunk % G == 0, "a chunk holds whole rounds");
+  const int lane = threadIdx.x % G;
   const long long HW = (long long)H * W;
-  const long long pix = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= HW) return;
-  const int y = (int)(pix / W);
-  const int x = (int)(pix - (long long)y * W);
+  const int u = blockIdx.x % U;
+  const int tile = blockIdx.x / U, tiles_x = (W + L::TW - 1) / L::TW;
+  const int g = threadIdx.x / G;
+  const int tx = (tile % tiles_x) * L::TW + g % L::TW, ty = (tile / tiles_x) * L::TH + g / L::TW;
+  // Every lane of a warp walks all the views and rounds (the groups
+  // exchange samples by shuffles); an inactive group's samples add nothing.
+  const bool active = tx < W && ty < H;
+  const int x = active ? tx : 0, y = active ? ty : 0;
+  const long long pa = (long long)y * W + x;
+  const int nc = (D + kChunk - 1) / kChunk;
+  const int b = u / nc;
+  const int d0 = u % nc * kChunk + lane;  // the lane's hypothesis of round 0
   const float fx = (float)x, fy = (float)y;
 
-  float refv[C];
-  const T* rb = ref + (long long)b * C * HW + pix;
+  float refv[K];
+  const T* rb = ref + ((long long)b * C + lane * K) * HW + pa;
 #pragma unroll
-  for (int c = 0; c < C; ++c) refv[c] = load(rb + c * HW);
+  for (int k = 0; k < K; ++k) refv[k] = load(rb + k * HW);
 
-  const T* sb = src + (long long)b * S * C * HW;
-  const float* wb = vw + (long long)b * S * HW + pix;
-  const float* db = depth + (long long)b * D * HW + pix;
-  float* ob = out + (long long)b * D * HW + pix;
-  for (int d = 0; d < D; ++d) {
-    const float z = db[d * HW];
-    float acc = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const float* r = rs + s * 12;
-      const float X = (r[0] * fx + r[1] * fy + r[2]) * z + r[3];
-      const float Y = (r[4] * fx + r[5] * fy + r[6]) * z + r[7];
-      const float Z = (r[8] * fx + r[9] * fy + r[10]) * z + r[11];
-      const float sim = correlate<T, C>(sb + (long long)s * C * HW, refv, X, Y, Z, H, W) / (float)C;
-      acc = fmaf(wb[s * HW], sim, acc);
+  float z[R], sum[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int d = d0 + r * G;
+    z[r] = active && d < D ? depth[((long long)b * D + d) * HW + pa] : 0.f;
+    sum[r] = 0.f;
+  }
+  for (int s = 0; s < S; ++s) {
+    // View s, weighted by w. Its padded run starts W + 1 records before its
+    // first pixel.
+    const int n = b * S + s;
+    const float w = active ? __ldg(vw + n * HW + pa) : 0.f;
+    const Proj p = projection(rel, n, fx, fy);
+    const T* sb = src_cl + n * (HW + W + 1) * C + lane * K;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const bool on = active && d0 + r * G < D;
+      sum[r] = fmaf(w, round_total<T, C, K, G>(sb, refv, p, z[r], on, lane, H, W), sum[r]);
     }
-    ob[d * HW] = acc;
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int d = d0 + r * G;
+    if (active && d < D) out[((long long)b * D + d) * HW + pa] = sum[r] * (1.f / (float)C);
   }
 }
 
@@ -426,14 +457,20 @@ cudaError_t dispatch(int C, const void* src, const void* ref, const void* rel, c
 template <int C>
 cudaError_t launch_wsum(const void* src, const void* ref, const void* rel, const void* depth,
                         const void* vw, void* out, int B, int S, int D, int H, int W,
-                        cudaStream_t stream) {
-  const long long hw = (long long)H * W;
-  const dim3 grid((unsigned)((hw + kThreads - 1) / kThreads), (unsigned)B);
-  const size_t smem = sizeof(float) * 12 * S;
-  warp_correlate_wsum_kernel<__nv_bfloat16, C><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(src), static_cast<const __nv_bfloat16*>(ref),
-      static_cast<const float*>(rel), static_cast<const float*>(depth),
-      static_cast<const float*>(vw), static_cast<float*>(out), S, D, H, W);
+                        cudaStream_t stream, void* src_cl) {
+  const long long HW = (long long)H * W;
+  const dim3 copy_grid((unsigned)((HW + copy_tile(C) - 1) / copy_tile(C)), (unsigned)(B * S));
+  warp_correlate_wsum_fwd_to_channels_last<C><<<copy_grid, kThreads, 0, stream>>>(
+      static_cast<const unsigned short*>(src), static_cast<unsigned short*>(src_cl), HW, W + 1);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  using L = Layout<__nv_bfloat16, C>;
+  const int U = B * ((D + kChunk - 1) / kChunk);
+  const unsigned blocks = (unsigned)((W + L::TW - 1) / L::TW) * ((H + L::TH - 1) / L::TH) * U;
+  warp_correlate_wsum_fwd_main<C><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(src_cl), static_cast<const __nv_bfloat16*>(ref),
+      static_cast<const float*>(rel), static_cast<const float*>(depth), static_cast<const float*>(vw),
+      static_cast<float*>(out), U, S, D, H, W);
   return cudaGetLastError();
 }
 
@@ -451,16 +488,19 @@ extern "C" int warp_correlate_forward(const void* src, const void* ref, const vo
   return (int)dispatch<float>(C, src, ref, rel, depth, out, N, S, D, H, W, s, src_cl);
 }
 
-// K7: bf16 src and ref, float32 rel, depth and vw; out [B, D, H, W].
-// Returns a cudaError_t code: 0 on success, else the launch's error.
+// K7: bf16 src and ref, float32 rel, depth and vw; out [B, D, H, W];
+// scratch src_cl as K2's, after the stream (an earlier build of this entry
+// point took none and ignores it). Returns a cudaError_t code: 0 on
+// success, else the first launch's error.
 extern "C" int warp_correlate_wsum_forward(const void* src, const void* ref, const void* rel,
                                            const void* depth, const void* vw, void* out, int B,
-                                           int S, int C, int D, int H, int W, void* stream) {
+                                           int S, int C, int D, int H, int W, void* stream,
+                                           void* src_cl) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C) {
-    case 8: return (int)launch_wsum<8>(src, ref, rel, depth, vw, out, B, S, D, H, W, s);
-    case 16: return (int)launch_wsum<16>(src, ref, rel, depth, vw, out, B, S, D, H, W, s);
-    case 32: return (int)launch_wsum<32>(src, ref, rel, depth, vw, out, B, S, D, H, W, s);
+    case 8: return (int)launch_wsum<8>(src, ref, rel, depth, vw, out, B, S, D, H, W, s, src_cl);
+    case 16: return (int)launch_wsum<16>(src, ref, rel, depth, vw, out, B, S, D, H, W, s, src_cl);
+    case 32: return (int)launch_wsum<32>(src, ref, rel, depth, vw, out, B, S, D, H, W, s, src_cl);
     default: return (int)cudaErrorInvalidValue;
   }
 }

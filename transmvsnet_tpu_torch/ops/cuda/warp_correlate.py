@@ -7,12 +7,14 @@ instantiation, K2) and ``warp_rowsweep.py::warp_correlate_rowsweep``
 (float32 features: its float instantiation, K6). ``warp_correlate_wsum``
 replaces ``warp_onehot.py::warp_correlate_wsum_onehot`` (bf16 features,
 K7): the view-weighted sum over the source views, without the per-view
-volume. All S source views of a batch go through one call: K2/K6 launch
-two kernels (a channels-last copy of the source features into scratch that
-the wrapper allocates, then the body), K7 one. Each wrapper launches its
-kernels for a CUDA tensor and takes its plain version only for a CPU
-tensor; anything the kernels do not take raises.
-``warp_correlate.launches`` counts K2's launches,
+volume. All S source views of a batch go through one call, which launches
+two kernels: a channels-last copy of the source features into scratch that
+the wrapper allocates (``forward_scratch``), then the body (K2/K6's and
+K7's share a lane group's round; K7's lanes each sum the views of a chunk
+of hypotheses of a pixel in registers). Each wrapper launches its kernels
+for a CUDA tensor and takes its plain version only for a CPU tensor;
+anything the kernels do not take raises.
+``warp_correlate.launches`` counts K2's calls,
 ``warp_correlate.launches_f32`` K6's, ``warp_correlate_wsum.launches``
 K7's.
 """
@@ -32,6 +34,9 @@ SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 # K2/K6's C entry point: src, ref, rel, depth, out; N, S, C, D, H, W, bf16;
 # the stream; the scratch src_cl. A build before the scratch ignores it.
 FORWARD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
+# K7's: src, ref, rel, depth, vw, out; B, S, C, D, H, W; the stream; the
+# scratch src_cl, which a build before it ignores.
+WSUM_FORWARD_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
 
 
 def _flat_views(src, ref, src_proj, ref_proj, depth):
@@ -136,7 +141,7 @@ def warp_correlate(
 
 
 def forward_scratch(src: torch.Tensor) -> torch.Tensor:
-    """K2/K6's scratch for src [B, S, C, H, W]: the source features
+    """K2/K6's and K7's scratch for src [B, S, C, H, W]: the source features
     channels-last in their dtype, [records, C], each view's H*W records
     between pads of W + 1 records (the kernel zeroes them), so that every
     corner of a sample lies in bounds. Raises where the body's 32-bit
@@ -225,23 +230,25 @@ def warp_correlate_wsum(
     B, S, C, D, H, W = _check_wsum(src, ref, src_proj, ref_proj, depth, vw)
     rel = relative_rows(src_proj, ref_proj)
     out = torch.empty((B, D, H, W), dtype=torch.float32, device=src.device)
+    src_cl = forward_scratch(src)
     lib = build.library("warp_correlate")
-    code = launch_wsum_forward(lib, src, ref, rel, depth, vw, out, build.stream_handle(src))
+    code = launch_wsum_forward(lib, src, ref, rel, depth, vw, out, src_cl, build.stream_handle(src))
     build.check(lib, "warp_correlate", code)
     build.count_launch(warp_correlate_wsum, src.dtype)
     return out
 
 
-def launch_wsum_forward(lib, src, ref, rel, depth, vw, out, stream) -> int:
+def launch_wsum_forward(lib, src, ref, rel, depth, vw, out, src_cl, stream) -> int:
     """Call K7's C entry point of ``lib`` on contiguous tensors (src
-    [B, S, C, H, W], depth [B, D, H, W]); returns its error code."""
+    [B, S, C, H, W], depth [B, D, H, W], src_cl from ``forward_scratch``);
+    returns its error code."""
     B, S, C, H, W = src.shape
     fn = lib.warp_correlate_wsum_forward
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = WSUM_FORWARD_ARGTYPES
     return fn(
         src.data_ptr(), ref.data_ptr(), rel.data_ptr(), depth.data_ptr(), vw.data_ptr(),
-        out.data_ptr(), B, S, C, depth.shape[1], H, W, stream,
+        out.data_ptr(), B, S, C, depth.shape[1], H, W, stream, src_cl.data_ptr(),
     )
 
 

@@ -11,11 +11,11 @@ on one card, in turns: typically the kernels of an earlier commit.
 The baseline directory holds the other sources (and any header they
 include); each exports the C entry point that the wrappers in ``ops/cuda/``
 call, so the baseline runs under the same wrappers, with the libraries that
-they call swapped. K2/K6's, K4's and K8's entry points take trailing
-arguments (scratch, K8's dvw flag) that the builds before them lack: under
-the x86-64 calling convention such a build ignores them, and the wrappers
-keep its contract (zeroed outputs, a dvw buffer), so it computes dvw
-always, as its steps did.
+they call swapped. K2/K6's, K7's, K4's and K8's entry points take
+trailing arguments (scratch, K8's dvw flag) that the builds before them
+lack: under the x86-64 calling convention such a build ignores them, and
+the wrappers keep its contract (zeroed outputs, a dvw buffer), so it
+computes dvw always, as its steps did.
 
 1. Kernels, each build first held to the plain version on the same inputs
    (the tolerances of ``chip_smoke.py``), then timed by CUDA events in turns
@@ -34,9 +34,10 @@ always, as its steps did.
    turns (a few steps each, in PyTorch's default arithmetic as the train CLI
    runs): ms per step split into forward (with the loss), backward and
    optimizer.
-3. ``--forwards``: the inference forward at 1152x864, 5 views, in bf16 and
-   float32 (offset convs with random weights, as ``chip_smoke.py`` sets
-   them), with each build in turns: ms per depth map.
+3. ``--forwards``: the inference forward at 1152x864, 5 views, in bf16,
+   float32 and bf16 with the fused view sum (offset convs with random
+   weights, as ``chip_smoke.py`` sets them), with each build in turns: ms
+   per depth map.
 4. ``--warp``: K4 (bf16 and float32) and K8 (with and without dvw), each
    build held to the plain version (``chip_smoke.py``'s gate) and timed in
    turns, on two kinds of inputs:
@@ -49,9 +50,9 @@ always, as its steps did.
      step makes them (without dvw) and again with dvw.
    ms per shape and per step (each shape's ms summed over a step's calls),
    beside the share of samples that land on the source image.
-5. ``--warp-fwd``: K2 (bf16) and K6 (float32), each build held to the plain
-   version (``chip_smoke.py``'s gate) and timed in turns, with K7 (the
-   fused view sum) in the same turns as a witness, on two kinds of inputs:
+5. ``--warp-fwd``: K2 (bf16), K6 (float32) and K7 (the fused view sum),
+   each build held to the plain version (``chip_smoke.py``'s gate) and
+   timed in turns, on two kinds of inputs:
    - the checks' inputs (``sweep_inputs``) at the three plane sweeps of the
      inference and the training path (K7 at stages 2-3);
    - the arguments of every K2/K6 and K7 call of one real inference
@@ -60,8 +61,10 @@ always, as its steps did.
    ms per shape and per forward (each shape's ms summed over a forward's
    calls): the device time of the kernels' launches alone, replayed from a
    CUDA graph (``kernel_ms``), since the wrappers' host time per call
-   exceeds these kernels'; beside it the wrapper's wall time per call and
-   the share of samples that land on the source image.
+   exceeds these kernels'; beside it the wrapper's wall time per call, the
+   share of samples that land on the source image, whether this tree's
+   every turn was faster than the baseline's every turn, and whether the
+   two builds' outputs are equal bit for bit.
 
 Prints one JSON line per phase, each with the card's name and power limit;
 ``--no-kernels`` skips phase 1 (to time only the other phases in a shorter
@@ -101,7 +104,8 @@ REQUESTS = 3     # inference forwards timed per turn
 # The training path's plane sweeps: (stage, C, D); K8 runs at stages 2-3.
 SWEEPS = (("stage1", 32, 48), ("stage2", 16, 32), ("stage3", 8, 8))
 # The training steps that --steps times and whose K4/K8 calls --warp
-# captures: (label, dtype, fused view sum).
+# captures, and the forwards that --forwards times: (label, dtype, fused
+# view sum).
 STEP_CONFIGS = (("bf16", "bfloat16", False), ("float32", "float32", False), ("bf16_fused", "bfloat16", True))
 WARP_GATE = (1e-3, 1e-3)  # rtol, atol_scale: chip_smoke.py's gate for K2, K4, K6, K7 and K8
 
@@ -236,7 +240,7 @@ def warp_fwd_launch(kernel: str, args):
     """A closure that launches K2/K6 ("warp_correlate", "warp_correlate_f32")
     or K7 ("warp_correlate_wsum") of the current build on ``args`` (as the
     wrappers take them) and nothing else: outputs, scratch and projection
-    rows are made once, as the wrapper makes them."""
+    rows are made once, as the wrappers make them."""
     from transmvsnet_tpu_torch.ops.cuda import build
     from transmvsnet_tpu_torch.ops.cuda.warp_correlate import (
         forward_scratch,
@@ -248,13 +252,13 @@ def warp_fwd_launch(kernel: str, args):
     src, ref, sp, rp, depth = args[:5]
     B, S, _, H, W = src.shape
     rel = relative_rows(sp, rp)
+    src_cl = forward_scratch(src)
     lib = build.library("warp_correlate")
     if kernel == "warp_correlate_wsum":
         out = torch.empty((B, depth.shape[1], H, W), dtype=torch.float32, device=src.device)
         return lambda: build.check(lib, "warp_correlate", launch_wsum_forward(
-            lib, src, ref, rel, depth, args[5], out, build.stream_handle(src)))
+            lib, src, ref, rel, depth, args[5], out, src_cl, build.stream_handle(src)))
     out = torch.empty((B, S, depth.shape[1], H, W), dtype=torch.float32, device=src.device)
-    src_cl = forward_scratch(src)
     return lambda: build.check(lib, "warp_correlate", launch_forward(
         lib, src, ref, rel, depth, out, src_cl, build.stream_handle(src)))
 
@@ -285,13 +289,18 @@ def per_pass(rows: list, keys) -> dict:
     return out
 
 
-def check_builds(builds: dict, fn, args, want, tol, what: str) -> None:
+def check_builds(builds: dict, fn, args, want, tol, what: str) -> bool:
+    """Raise unless each build's ``fn(*args)`` is within ``tol`` of
+    ``want``; returns whether the builds' outputs are equal bit for bit."""
+    outs = []
     for name, libs in builds.items():
         with using(libs):
             got = fn(*args)
         bad = outside(got, want, *tol)
         if bad:
             raise AssertionError(f"{name} disagrees with the plain version at {what}: {bad} outside")
+        outs.append(got)
+    return all(torch.equal(outs[0], o) for o in outs[1:])
 
 
 def forward_phase(builds: dict, dev) -> dict:
@@ -606,16 +615,18 @@ def warp_fwd_phase(builds: dict, dev) -> dict:
         else:
             fn, plain = warp_correlate, warp_correlate_plain
         with torch.no_grad():
-            check_builds(builds, fn, args, plain(*args), WARP_GATE, f"{kernel} {inputs} {stage}")
+            equal = check_builds(builds, fn, args, plain(*args), WARP_GATE, f"{kernel} {inputs} {stage}")
             ms = in_turns(builds, lambda: kernel_ms(warp_fwd_launch(kernel, args)))
             call_ms = in_turns(builds, lambda: cuda_ms(lambda: fn(*args), ITERS))
         row = {"kernel": kernel, "inputs": inputs, "stage": stage, "shape": list(args[0].shape),
                "D": args[4].shape[1], "per_pass": 1, "valid_share": valid_share(args),
                "ms": {k: sum(v) / len(v) for k, v in ms.items()}, "ms_turns": ms,
+               "faster_every_turn": max(ms["this"]) < min(ms["baseline"]), "bitwise_equal": equal,
                "call_ms": {k: sum(v) / len(v) for k, v in call_ms.items()}}
         rows.append(row)
         print(f"{kernel} {inputs} {stage} {row['shape']} D {row['D']} valid {row['valid_share']:.3f}: "
               + " ".join(f"{k} {v:.4f} ms" for k, v in row["ms"].items())
+              + f" (this faster in every turn: {row['faster_every_turn']}; bitwise equal: {equal})"
               + "; per wrapper call " + " ".join(f"{k} {v:.4f}" for k, v in row["call_ms"].items()), flush=True)
         del args
         torch.cuda.empty_cache()
@@ -690,8 +701,8 @@ def forwards_phase(builds: dict, dev) -> dict:
     t_imgs = torch.from_numpy(imgs).to(dev)
     t_projs = {k: torch.from_numpy(v).to(dev) for k, v in projs.items()}
     t_dv = torch.from_numpy(dv).to(dev)
-    for label, dtype_name in (("bf16", "bfloat16"), ("float32", "float32")):
-        model = inference_model(dev, dtype_name)
+    for label, dtype_name, fused in STEP_CONFIGS:
+        model = inference_model(dev, dtype_name, fused)
 
         def timed():
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

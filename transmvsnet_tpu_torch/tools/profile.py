@@ -11,10 +11,10 @@ a pass is one forward at the DTU eval setting (batch 1, 1152x864) or, with
 (CUDA events), device-busy milliseconds per pass (the union of the traced
 kernels' intervals), the device's idle share, the kernels that take the
 most device time, the port's own kernels' totals (``PORT_KERNELS``: each
-kernel with every launch that belongs to it, such as K2/K6's channels-last
-copy and K4's and K8's copy and planar write), and every launch of 1 ms or more in
-the first traced pass, in order. With ``--logdir`` it also writes a Chrome
-trace. Weights are random from a seeded generator; activations in
+kernel with every launch that belongs to it, such as K2/K6's and K7's
+channels-last copy and K4's and K8's copy and planar write), and every
+launch of 1 ms or more in the first traced pass, in order. With
+``--logdir`` it also writes a Chrome trace. Weights are random from a seeded generator; activations in
 ``--dtype`` (float32 by default, as the CLIs); ``--fused`` sets
 ``fused_view_sum`` (bf16 stages 2-3 through K7 and K8).
 """
@@ -33,7 +33,7 @@ import torch
 PORT_KERNELS = {
     "dcn_fwd_kernel": "dcn_fwd_kernel",  # K1 in bf16 (last template argument true), K5
     "warp_correlate_kernel": "warp_correlate_fwd_",  # K2, K6: copy and body
-    "warp_correlate_wsum_kernel": "warp_correlate_wsum_kernel",  # K7
+    "warp_correlate_wsum_kernel": "warp_correlate_wsum_fwd_",  # K7: copy and body
     "dcn_bwd_kernel": "dcn_bwd_kernel",  # K3
     "warp_correlate_bwd": "warp_correlate_bwd_",  # K4: copy, body, planar write
     "warp_correlate_wsum_bwd": "warp_correlate_wsum_bwd_",  # K8: the same three
