@@ -1,6 +1,7 @@
 """GPU smoke run of the PyTorch/CUDA port: DTU inference and DTU training,
 in bfloat16, in float32 (the JAX package's default), and in bfloat16 with
-the fused view sum (``fused_view_sum=True``).
+the fused view sum (``fused_view_sum=True``); then the evaluation pipeline
+(read, infer, write, fuse, score) through the CLIs.
 
     python3 chip_smoke.py
 
@@ -8,7 +9,9 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this repository's
 ``transmvsnet_tpu_torch`` package. Phases, in order; any failure raises:
 
 1. Device: the card's name and power limit (nvidia-smi).
-2. Build: compile every kernel under ``transmvsnet_tpu_torch/csrc``.
+2. Build: compile every kernel under ``transmvsnet_tpu_torch/csrc`` and
+   the nvJPEG codec ``csrc/image_codec.cu``; print which image packages the
+   machine has and the libnvjpeg loaded.
 3. Kernel checks: each kernel instantiation against its plain PyTorch
    version on the card, on the same inputs, at every shape its path gives
    it; kernel and plain times by CUDA events. bf16: K1-K4 and the fused
@@ -39,8 +42,24 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this repository's
    against the same step on the plain ops and with the plain backward
    (see GRAD_COSINE_MIN and F32_COSINE_MIN), beside witnesses of the
    noise and planted kernel faults the gates must catch.
-6. The kernel line, the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+6. Evaluation pipeline, through the port's CLIs on the card, with seeded
+   weights whose probability volumes are peaked (PIPELINE_GAIN): (a) the
+   nvJPEG codec against the committed libjpeg decodes
+   (tests/data/torch_codec), its decode time and JPEG round trip at the
+   DTU and TnT source sizes, and the PNG codec on 640x512 Paeth rows; (b)
+   a 6-view synthetic scene at 1600x1200 through tools/infer.main at
+   1152x864, 5 views, 48/32/8 of 192, float32 and bf16 at batch 1 (each
+   PFM against the in-memory forward), float32 at batch 2 against batch 1
+   in full float32, launches and nvJPEG calls counted; (c) tools/fuse.main
+   (dynamic, normal) on (b)'s float32 outputs, each view against the CPU
+   fuser, then a true-depth scan at 1152x864 fused on the card, held
+   against the CPU and scored by tools/eval_dtu.main (overall < 0.5); (d)
+   a 12-view scene at 1920x1080 in a TnT tree through infer (--dataset tnt,
+   11 views, inverse depth) and fuse (thres_view 5). The CPU fuser that
+   (c) holds the card against reads the reference image with PIL and
+   resizes with cv2, which the card's machine has (printed in phase 2).
+7. The pipeline's times, the kernel line, the card's name and power
+   limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1169,6 +1188,519 @@ def grad_comparison(model, state, run, dtype_name: str, fused: bool) -> dict:
     return result
 
 
+# --- Phase 6: the evaluation pipeline --------------------------------------
+
+# Peaked probability volumes: the cost regularisers' first conv scaled by
+# this gain (tests/test_torch_infer_cli.py::_model uses 1e3 at 64x64) keeps
+# most blended confidences above the fusers' 0.3 (DTU) and 0.18 (TnT) cuts.
+PIPELINE_GAIN = 1e5
+CODEC_MEAN_MAX, CODEC_MAX = 1.0, 16  # nvJPEG against libjpeg, in levels
+DTU_SOURCE_HW, DTU_SCENE_VIEWS, DTU_NUM_VIEW = (1200, 1600), 6, 5
+TNT_SOURCE_HW, TNT_SCENE_VIEWS, TNT_NUM_VIEW = (1080, 1920), 12, 11
+TRUE_SCAN_HW, TRUE_SCAN_VIEWS = (864, 1152), 4
+# The true-depth scan in millimetres, as DTU's: the plane ~600 mm away (DTU
+# 425-935 mm), so that the scorer's 0.2 mm spacing and 20 mm outlier cap
+# mean what they mean on DTU; GT_SAMPLES surface points per view.
+TRUE_SCAN_MM, GT_SAMPLES = 100.0, 250_000
+PFM_AGREE_MIN = 0.999  # share of pixels whose CLI depth is within one stage-3 interval
+PFM_CONF_TOL = 1e-5  # max |dconf| against the in-memory forward (same batch, same kernels)
+# Batch 2 against batch 1, both in full float32: cuDNN picks other
+# algorithms for batch 2, whose float32 rounding the gain amplifies in the
+# softmax. In full float32 the worst view's mean |dconf| read 4.6e-5 and
+# 99.95% of its depths were equal (max |dconf| 0.35); with TF32 convs (the
+# CLI's arithmetic) 7.8e-3 and 89.4%; at a gain of 1e3, 1e-8 and 100% (on
+# an NVIDIA H100 80GB HBM3 at 700 W). Gated on the mean, in full float32.
+BATCH_CONF_MEAN_TOL = 1e-4
+MASK_AGREE_MIN = 0.9999  # the card's fuser against the CPU's: kept-pixel masks
+POINT_TOL = 1e-4  # ... and points, times the scene's depth range
+SCORE_MAX = 0.5  # tests/test_cli_pipeline.py::test_dtu_fuse_then_evaluate's bound
+DECODE_REPEATS = 20
+
+
+def focal_for(width: int) -> float:
+    """The synthetic scene's field of view (focal 120 px at 96 px wide)."""
+    from transmvsnet_tpu_torch.data.synthetic import FOCAL
+
+    return FOCAL * width / 96
+
+
+def levels(img: torch.Tensor) -> np.ndarray:
+    """A [0, 1] float image read by ``read_image`` back in uint8 levels."""
+    return (img * 255).round().to(torch.uint8).cpu().numpy().astype(np.int64)
+
+
+def paeth_png(img: np.ndarray) -> bytes:
+    """An RGB PNG whose rows all use the Paeth filter (the sequential case
+    of the decoder), encoded here with numpy and zlib."""
+    import struct
+    import zlib
+
+    h, w, _ = img.shape
+    x = img.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, 1:] = x[:, :-1]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[1:, 1:] = x[:-1, :-1]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = ((x - pred) & 255).astype(np.uint8).reshape(h, -1)
+    raw = np.concatenate([np.full((h, 1), 4, np.uint8), rows], axis=1).tobytes()
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    return b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b"")
+
+
+def codec_checks(dev, work) -> dict:
+    """(a) nvJPEG against the committed libjpeg decodes; decode time at the
+    DTU and TnT source sizes; the JPEG and PNG round trips; the PNG
+    decoder's time on a 640x512 image of Paeth rows."""
+    import pathlib
+    import time
+
+    from transmvsnet_tpu_torch.data import image_io
+    from transmvsnet_tpu_torch.data.synthetic import SyntheticScene
+
+    fixtures = pathlib.Path(__file__).resolve().parent / "tests" / "data" / "torch_codec"
+    def diff(got, want):
+        d = np.abs(got - want)
+        return {"mean_abs_levels": float(d.mean()), "max_abs_levels": int(d.max())}
+
+    out = {"fixtures": {}, "jpeg_round_trip": {}}
+    for name in ("synthetic_420", "synthetic_444"):
+        out["fixtures"][name] = diff(levels(image_io.read_image(str(fixtures / f"{name}.jpg"), dev)),
+                                     np.load(fixtures / f"{name}.npy"))
+    for (h, w), key in ((DTU_SOURCE_HW, "dtu"), (TNT_SOURCE_HW, "tnt")):
+        img, _ = SyntheticScene(1, h, w, seed=0, focal=focal_for(w)).render(0)
+        u8 = torch.from_numpy((img * 255).astype(np.uint8))
+        path = str(work / f"{key}.jpg")
+        image_io.write_jpeg(path, u8.to(dev))
+        out["jpeg_round_trip"][key] = diff(levels(image_io.read_image(path, dev)), u8.numpy())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DECODE_REPEATS):
+            image_io.read_image(path, dev)
+        torch.cuda.synchronize()
+        out[f"ms_per_decoded_image_{key}_{w}x{h}"] = (time.perf_counter() - t0) / DECODE_REPEATS * 1e3
+    img, _ = SyntheticScene(1, 512, 640, seed=0, focal=focal_for(640)).render(0)
+    u8 = (img * 255).astype(np.uint8)
+    png = paeth_png(u8)
+    t0 = time.perf_counter()
+    decoded = image_io.decode_png(png)
+    out["ms_per_png_decode_640x512_paeth"] = (time.perf_counter() - t0) * 1e3
+    out["png_bit_exact"] = bool(np.array_equal(decoded, u8)
+                                and np.array_equal(image_io.decode_png(image_io.encode_png(u8)), u8))
+    print("evaluation pipeline, codec: " + json.dumps(out), flush=True)
+    bad = [k for group in ("fixtures", "jpeg_round_trip") for k, v in out[group].items()
+           if not (v["mean_abs_levels"] <= CODEC_MEAN_MAX and v["max_abs_levels"] <= CODEC_MAX)]
+    if bad or not out["png_bit_exact"]:
+        raise AssertionError(f"codec gate (mean <= {CODEC_MEAN_MAX}, max <= {CODEC_MAX} levels; PNG "
+                             f"bit for bit) fails at {bad or 'png'}: {out}")
+    return out
+
+
+def pipeline_checkpoint(path) -> None:
+    """Seeded weights as tests/test_torch_infer_cli.py::_model makes them,
+    with PIPELINE_GAIN, saved in the reference's .ckpt layout."""
+    from transmvsnet_tpu_torch.config import ModelConfig
+    from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
+
+    model = TransMVSNet(ModelConfig(ndepths=NDEPTHS), device="cpu", generator=torch.Generator().manual_seed(3))
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".conv_offset_mask." in name:
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.5)
+            elif name.startswith("cost_regularization.") and name.endswith("conv0.conv.weight"):
+                p.mul_(PIPELINE_GAIN)
+    torch.save({"model": model.state_dict()}, path)
+
+
+def run_infer(args: list, per_pass: dict, passes: int, maps: int, views: int, what: str,
+              cli_arithmetic: bool = True) -> dict:
+    """tools/infer.main in the CLI's arithmetic (or, if not
+    ``cli_arithmetic``, in full float32), with its kernel launches, nvJPEG
+    decodes (views per map) and encodes (one per map) counted and the peak
+    memory read."""
+    import time
+
+    from transmvsnet_tpu_torch.data import image_io
+    from transmvsnet_tpu_torch.tools import infer
+
+    reset_launches()
+    image_io.jpeg_decode.launches = image_io.jpeg_encode.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with cudnn_default_arithmetic() if cli_arithmetic else contextlib.nullcontext():
+        seconds = infer.main(args)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    expect_launches(launches, per_pass, passes, what)
+    coded = (image_io.jpeg_decode.launches, image_io.jpeg_encode.launches)
+    if coded != (maps * views, maps):
+        raise AssertionError(f"{what}: {coded} nvJPEG decodes and encodes, expected {(maps * views, maps)}")
+    return {"wall_s": wall, "iteration_s": seconds, "launches": launches, "jpeg_decodes": coded[0],
+            "jpeg_encodes": coded[1], "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def compare_pfms(out_dir, scan: str, views, forward, interval: float) -> dict:
+    """Each view's PFM depth and confidence against ``forward(view)``, the
+    (depth, confidence) the CLI should have written."""
+    from transmvsnet_tpu_torch.data.pfm import read_pfm
+
+    agree, conf_max, conf_mean = [], 0.0, 0.0
+    for v in views:
+        depth, conf = forward(v)
+        got_d = read_pfm(f"{out_dir}/{scan}/depth_est/{v:0>8}.pfm")[0]
+        got_c = read_pfm(f"{out_dir}/{scan}/confidence/{v:0>8}.pfm")[0]
+        agree.append(float((np.abs(got_d - depth) <= interval).mean()))
+        conf_max = max(conf_max, float(np.abs(got_c - conf).max()))
+        conf_mean = max(conf_mean, float(np.abs(got_c - conf).mean()))
+    return {"depth_within_one_interval_min": min(agree), "max_abs_dconf": conf_max,
+            "mean_abs_dconf_max_over_views": conf_mean}
+
+
+def dtu_infer(dev, work, ckpt) -> dict:
+    """(b) DTU shape through tools/infer.main: float32 (K5, K6) and bf16 (K1,
+    K2) at batch 1 in the CLI's arithmetic, each PFM against the in-memory
+    forward of the same model on the same decoded sample; float32 at batch
+    2 against batch 1, both in full float32 (see BATCH_CONF_MEAN_TOL)."""
+    import os
+
+    from transmvsnet_tpu_torch.config import ModelConfig
+    from transmvsnet_tpu_torch.data.datasets import GeneralEvalDataset
+    from transmvsnet_tpu_torch.data.pfm import read_pfm
+    from transmvsnet_tpu_torch.data.synthetic import SyntheticDataset
+    from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet, blended_confidence
+    from transmvsnet_tpu_torch.tools.infer import load_checkpoint
+
+    data = work / "dtu"
+    h, w = DTU_SOURCE_HW
+    SyntheticDataset(nviews=DTU_SCENE_VIEWS, num_samples=1, height=h, width=w, ndepths=NUM_HYP,
+                     focal=focal_for(w)).materialize(str(data), device=dev)
+    os.rename(data / "synth0", data / "scan1")
+    (work / "dtu.txt").write_text("scan1\n")
+    common = ["--datapath", str(data), "--testlist", str(work / "dtu.txt"), "--loadckpt", str(ckpt),
+              "--num_view", str(DTU_NUM_VIEW), "--numdepth", str(NUM_HYP), "--max_h", str(H), "--max_w", str(W),
+              "--ndepths", ",".join(map(str, NDEPTHS))]
+    maps = DTU_SCENE_VIEWS
+    ds = GeneralEvalDataset(str(data), ["scan1"], nviews=DTU_NUM_VIEW, ndepths=NUM_HYP, max_h=H, max_w=W, device=dev)
+    samples = {int(ds[i]["filename"].split("/")[-1][:8]): ds[i] for i in range(len(ds))}
+    interval = 0.5 * float(samples[0]["depth_values"][1] - samples[0]["depth_values"][0])
+    result = {}
+    runs = (("float32", "_f32", 1, True), ("bfloat16", "", 1, True), ("float32", "_f32", 1, False),
+            ("float32", "_f32", 2, False))
+    for dtype, sfx, batch, cli in runs:
+        key = f"{dtype}_batch{batch}" + ("" if cli else "_full_float32")
+        out = work / f"dtu_out_{key}"
+        r = run_infer([*common, "--outdir", str(out), "--dtype", dtype, "--batch_size", str(batch)],
+                      FORWARD_LAUNCHES["inference" + sfx], -(-maps // batch), maps, DTU_NUM_VIEW,
+                      f"DTU infer CLI ({key})", cli_arithmetic=cli)
+        steady = r["iteration_s"][1:] or r["iteration_s"]
+        r["cli_ms_per_depth_map"] = 1e3 * float(np.mean(steady)) / batch
+        r["first_iteration_ms"] = 1e3 * r["iteration_s"][0]
+        if not cli and batch == 1:
+            result[key] = r
+            print(f"evaluation pipeline, DTU infer {key}: " + json.dumps(r), flush=True)
+            continue
+        if batch == 1:
+            model = TransMVSNet(ModelConfig(ndepths=NDEPTHS, compute_dtype=dtype), device=dev)
+            load_checkpoint(model, str(ckpt))
+            model.eval()
+
+            def forward(v):
+                s = samples[v]
+                with torch.no_grad(), cudnn_default_arithmetic():
+                    o = model(torch.from_numpy(s["imgs"][None]).to(dev),
+                              {k: torch.from_numpy(p[None]).to(dev) for k, p in s["proj_matrices"].items()},
+                              torch.from_numpy(s["depth_values"][None]).to(dev))
+                    depth, conf = blended_confidence(o)
+                return depth[0].cpu().numpy(), conf[0].cpu().numpy()
+
+            r["vs_in_memory_forward"] = compare_pfms(out, "scan1", samples, forward, interval)
+            del model
+        else:
+            base = work / "dtu_out_float32_batch1_full_float32"
+
+            def forward(v):
+                return (read_pfm(f"{base}/scan1/depth_est/{v:0>8}.pfm")[0],
+                        read_pfm(f"{base}/scan1/confidence/{v:0>8}.pfm")[0])
+
+            r["vs_batch1"] = compare_pfms(out, "scan1", samples, forward, interval)
+        result[key] = r
+        print(f"evaluation pipeline, DTU infer {key}: " + json.dumps(r), flush=True)
+        if batch == 1:
+            gate = r["vs_in_memory_forward"]
+            conf_ok = gate["max_abs_dconf"] <= PFM_CONF_TOL
+        else:
+            gate = r["vs_batch1"]
+            conf_ok = gate["mean_abs_dconf_max_over_views"] <= BATCH_CONF_MEAN_TOL
+        if not (gate["depth_within_one_interval_min"] >= PFM_AGREE_MIN and conf_ok):
+            raise AssertionError(f"DTU infer {key}: PFMs disagree (depth within one interval at >= "
+                                 f"{PFM_AGREE_MIN}; confidence max {PFM_CONF_TOL} against the forward, "
+                                 f"mean {BATCH_CONF_MEAN_TOL} against batch 1): {gate}")
+        torch.cuda.empty_cache()
+    result["scan"] = str(work / "dtu_out_float32_batch1")
+    result["depth_range"] = float(samples[0]["depth_values"][-1] - samples[0]["depth_values"][0])
+    return result
+
+
+def card_vs_cpu_fusion(scan_dir: str, params, depth_range: float, what: str) -> dict:
+    """Every reference view fused on the card and on CPU tensors: kept-pixel
+    masks, and the points of pixels both keep."""
+    from transmvsnet_tpu_torch.data.cams import read_pair_file
+    from transmvsnet_tpu_torch.fusion.dynamic import fuse_view
+
+    agree, worst, kept = [], 0.0, 0
+    for ref, srcs in read_pair_file(f"{scan_dir}/pair.txt"):
+        xyz_c, _, m_c = (t.cpu() for t in fuse_view(scan_dir, ref, srcs, params, torch.device("cuda")))
+        xyz_p, _, m_p = fuse_view(scan_dir, ref, srcs, params, torch.device("cpu"))
+        agree.append(float((m_c == m_p).double().mean()))
+        both = (m_c & m_p).reshape(-1)
+        idx_c = torch.cumsum(m_c.reshape(-1).long(), 0) - 1
+        idx_p = torch.cumsum(m_p.reshape(-1).long(), 0) - 1
+        if both.any():
+            worst = max(worst, float((xyz_c[idx_c[both]] - xyz_p[idx_p[both]]).abs().max()))
+        kept += int(m_c.sum())
+    r = {"mask_agree_min": min(agree), "max_abs_dpoint": worst, "point_tol": POINT_TOL * depth_range,
+         "points_on_card": kept}
+    if not (r["mask_agree_min"] >= MASK_AGREE_MIN and worst <= POINT_TOL * depth_range):
+        raise AssertionError(f"{what}: the card's fuser disagrees with the CPU's: {r}")
+    return r
+
+
+def timed_cli(fn, args: list) -> float:
+    import time
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn(args)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def write_true_scan(dev, root) -> tuple:
+    """The synthetic scene's true depth maps as a fusion scan (confidence 1,
+    as tests/test_cli_pipeline.py:85-118 writes them), scaled to
+    millimetres (TRUE_SCAN_MM), and DTU-layout ground truth: surface points
+    unprojected from the true depths, an all-ones observability mask over
+    their box, and a ground plane below."""
+    import os
+
+    from scipy.io import savemat
+
+    from transmvsnet_tpu_torch.data.cams import write_cam_file
+    from transmvsnet_tpu_torch.data.image_io import write_jpeg
+    from transmvsnet_tpu_torch.data.pfm import save_pfm
+    from transmvsnet_tpu_torch.data.synthetic import SyntheticScene
+    from transmvsnet_tpu_torch.fusion.ply import write_ply
+
+    h, w = TRUE_SCAN_HW
+    scene = SyntheticScene(TRUE_SCAN_VIEWS, h, w, seed=0, focal=focal_for(w))
+    scan = root / "true" / "scan1"
+    for sub in ("depth_est", "confidence", "cams", "images"):
+        os.makedirs(scan / sub)
+    rng = np.random.RandomState(0)
+    surface = []
+    depths = []
+    for v in range(scene.V):
+        img, depth = scene.render(v)
+        depth = (depth * TRUE_SCAN_MM).astype(np.float32)
+        depths.append(depth)
+        E = scene.extrinsics[v].copy()
+        E[:3, 3] *= TRUE_SCAN_MM
+        save_pfm(str(scan / f"depth_est/{v:0>8}.pfm"), depth)
+        save_pfm(str(scan / f"confidence/{v:0>8}.pfm"), np.ones_like(depth))
+        pair = np.zeros((2, 4, 4), dtype=np.float32)
+        pair[0] = E
+        pair[1, :3, :3] = scene.K
+        write_cam_file(str(scan / f"cams/{v:0>8}_cam.txt"), pair, "1.0 0.01")
+        write_jpeg(str(scan / f"images/{v:0>8}.jpg"), torch.from_numpy((img * 255).astype(np.uint8)).to(dev))
+        ys, xs = rng.randint(0, h, GT_SAMPLES), rng.randint(0, w, GT_SAMPLES)
+        d = depth[ys, xs].astype(np.float64)
+        cam = np.linalg.inv(scene.K) @ np.stack([xs * d, ys * d, d])
+        surface.append((E[:3, :3].T @ (cam - E[:3, 3:4])).T)
+    with open(scan / "pair.txt", "w") as f:
+        f.write(f"{scene.V}\n")
+        for v in range(scene.V):
+            others = [o for o in range(scene.V) if o != v]
+            f.write(f"{v}\n{len(others)} " + " ".join(f"{o} 10.0" for o in others) + "\n")
+    stl = np.concatenate(surface).astype(np.float32)
+    gt = root / "gt"
+    os.makedirs(gt / "Points/stl")
+    os.makedirs(gt / "ObsMask")
+    write_ply(str(gt / "Points/stl/stl001_total.ply"), stl, np.full((len(stl), 3), 128, np.uint8))
+    lo, hi = stl.min(0) - 5.0, stl.max(0) + 5.0
+    dims = np.ceil(hi - lo).astype(int) + 1
+    savemat(str(gt / "ObsMask/ObsMask1_10.mat"), {"ObsMask": np.ones(dims, np.uint8), "BB": np.stack([lo, hi]),
+                                                  "Res": 1.0})
+    savemat(str(gt / "ObsMask/Plane1.mat"), {"P": np.array([0.0, 0.0, 1.0, -1.0])})
+    return str(root / "true"), str(gt), float(max(d.max() for d in depths) - min(d.min() for d in depths))
+
+
+def fusion_and_scoring(dev, work, dtu) -> dict:
+    """(c) tools/fuse.main, dynamic then normal, on (b)'s float32 outputs on
+    the card, held against the CPU fuser; the true-depth scan fused on the
+    card, held against the CPU, and scored by tools/eval_dtu.main."""
+    import contextlib
+    import io
+    import time
+
+    from transmvsnet_tpu_torch.fusion.dynamic import FusionParams
+    from transmvsnet_tpu_torch.fusion.ply import read_ply
+    from transmvsnet_tpu_torch.tools import eval_dtu, fuse
+
+    out_root = str(work / "dtu_out_float32_batch1")
+    result = {}
+    for method, photo in (("dynamic", 0.3), ("normal", 0.9)):  # the CLI's DTU defaults
+        plys = work / f"plys_{method}"
+        s = timed_cli(fuse.main, ["--testpath", out_root, "--testlist", str(work / "dtu.txt"), "--outdir", str(plys),
+                                  "--test_dataset", "dtu", "--filter_method", method])
+        xyz, _ = read_ply(str(plys / "mvsnet001_l3.ply"))
+        r = {"ms_per_scan": 1e3 * s, "ms_per_reference_view": 1e3 * s / DTU_SCENE_VIEWS, "points": len(xyz),
+             "vs_cpu": card_vs_cpu_fusion(f"{out_root}/scan1", FusionParams(photo_threshold=photo, thres_view=3,
+                                                                            mode=method),
+                                          dtu["depth_range"], f"DTU fusion ({method})")}
+        if not np.isfinite(xyz).all():
+            raise AssertionError(f"DTU fusion ({method}): non-finite points")
+        result[method] = r
+        print(f"evaluation pipeline, DTU fusion {method}: " + json.dumps(r), flush=True)
+
+    true_root, gt, depth_range = write_true_scan(dev, work)
+    (work / "true.txt").write_text("scan1\n")
+    s = timed_cli(fuse.main, ["--testpath", true_root, "--testlist", str(work / "true.txt"), "--outdir",
+                              str(work / "plys_true"), "--test_dataset", "dtu", "--photo_threshold", "0.5",
+                              "--thres_view", "2"])
+    xyz, _ = read_ply(str(work / "plys_true/mvsnet001_l3.ply"))
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        eval_dtu.main(["--plydir", str(work / "plys_true"), "--gtpath", gt, "--scans", "1"])
+    score_s = time.perf_counter() - t0
+    score = json.loads(buf.getvalue().strip().splitlines()[-1])
+    r = {"ms_per_scan": 1e3 * s, "ms_per_reference_view": 1e3 * s / TRUE_SCAN_VIEWS, "points": len(xyz),
+         "vs_cpu": card_vs_cpu_fusion(f"{true_root}/scan1", FusionParams(photo_threshold=0.5, thres_view=2),
+                                      depth_range, "true-depth fusion"),
+         "scoring_s": score_s, "score": score}
+    result["true_depth"] = r
+    print("evaluation pipeline, true-depth scan: " + json.dumps(r), flush=True)
+    if not (len(xyz) > 0 and score["overall"] < SCORE_MAX):
+        raise AssertionError(f"true-depth scan: overall {score['overall']} not below {SCORE_MAX} ({len(xyz)} points)")
+    return result
+
+
+def tnt_pipeline(dev, work, ckpt) -> dict:
+    """(d) TnT shape: a 12-view scene at 1920x1080 in a TnT tree (cams_1/,
+    minmax depth lines), every view a reference with the 11 others as
+    sources (the fuser reads each source's depth map); infer with 11 views
+    and inverse depth, fused with thres_view 5."""
+    import os
+
+    from transmvsnet_tpu_torch.data.cams import write_cam_file
+    from transmvsnet_tpu_torch.data.image_io import write_jpeg
+    from transmvsnet_tpu_torch.data.pfm import read_pfm
+    from transmvsnet_tpu_torch.data.synthetic import SyntheticScene
+    from transmvsnet_tpu_torch.fusion.ply import read_ply
+    from transmvsnet_tpu_torch.tools import fuse
+
+    h, w = TNT_SOURCE_HW
+    scene = SyntheticScene(TNT_SCENE_VIEWS, h, w, seed=0, focal=focal_for(w))
+    lo, hi = scene.depth_range()
+    scan = work / "tnt" / "Horse"  # a 1920x1080 scene of TnTEvalDataset.IMAGE_SIZES
+    os.makedirs(scan / "images")
+    os.makedirs(scan / "cams_1")
+    for v in range(scene.V):
+        img, _ = scene.render(v)
+        write_jpeg(str(scan / f"images/{v:0>8}.jpg"), torch.from_numpy((img * 255).astype(np.uint8)).to(dev))
+        pair = np.zeros((2, 4, 4), dtype=np.float32)
+        pair[0] = scene.extrinsics[v]
+        pair[1, :3, :3] = scene.K
+        write_cam_file(str(scan / f"cams_1/{v:0>8}_cam.txt"), pair, f"{lo:.6f} {hi:.6f}")
+    with open(scan / "pair.txt", "w") as f:
+        f.write(f"{scene.V}\n")
+        for v in range(scene.V):
+            others = sorted((o for o in range(scene.V) if o != v), key=lambda o: abs(o - v))
+            f.write(f"{v}\n{len(others)} " + " ".join(f"{o} {100.0 - i}" for i, o in enumerate(others)) + "\n")
+    (work / "tnt.txt").write_text("Horse\n")
+    out = work / "tnt_out"
+    r = run_infer(["--dataset", "tnt", "--datapath", str(work / "tnt"), "--testlist", str(work / "tnt.txt"),
+                   "--outdir", str(out), "--loadckpt", str(ckpt), "--num_view", str(TNT_NUM_VIEW),
+                   "--numdepth", str(NUM_HYP), "--ndepths", ",".join(map(str, NDEPTHS)), "--inverse_depth"],
+                  FORWARD_LAUNCHES["inference_f32"], scene.V, scene.V, TNT_NUM_VIEW, "TnT infer CLI")
+    steady = r["iteration_s"][1:]
+    r["cli_ms_per_depth_map"] = 1e3 * float(np.mean(steady))
+    finite = True
+    for v in range(scene.V):
+        depth = read_pfm(str(out / f"Horse/depth_est/{v:0>8}.pfm"))[0]
+        conf = read_pfm(str(out / f"Horse/confidence/{v:0>8}.pfm"))[0]
+        finite &= depth.shape == (h // 32 * 32, w) and bool(np.isfinite(depth).all() and np.isfinite(conf).all())
+    s = timed_cli(fuse.main, ["--testpath", str(out), "--testlist", str(work / "tnt.txt"), "--outdir",
+                              str(work / "plys_tnt"), "--test_dataset", "tnt", "--thres_view", "5"])
+    xyz, rgb = read_ply(str(work / "plys_tnt/Horse.ply"))
+    r.update({"outputs_finite": finite, "fusion_ms_per_scan": 1e3 * s,
+              "fusion_ms_per_reference_view": 1e3 * s / scene.V, "points": len(xyz)})
+    print("evaluation pipeline, TnT: " + json.dumps(r), flush=True)
+    if not (finite and len(xyz) > 0 and np.isfinite(xyz).all() and rgb is not None):
+        raise AssertionError(f"TnT pipeline: finite outputs {finite}, {len(xyz)} points")
+    return r
+
+
+def evaluation_pipeline(dev, paths: dict) -> dict:
+    """Phase 6: read -> infer -> write -> fuse -> score through the port's
+    CLIs on the card, in a scratch tree under build/ (git-ignored)."""
+    import pathlib
+    import shutil
+
+    work = pathlib.Path(__file__).resolve().parent / "build" / "eval_pipeline"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ckpt = work / "peaked.ckpt"
+    pipeline_checkpoint(ckpt)
+    codec = codec_checks(dev, work)
+    dtu = dtu_infer(dev, work, ckpt)
+    fusion = fusion_and_scoring(dev, work, dtu)
+    tnt = tnt_pipeline(dev, work, ckpt)
+    summary = {
+        "ms_per_decoded_image": {k: v for k, v in codec.items() if k.startswith("ms_per_decoded")},
+        "ms_per_png_decode_640x512_paeth": codec["ms_per_png_decode_640x512_paeth"],
+        "cli_ms_per_depth_map": {
+            "float32": dtu["float32_batch1"]["cli_ms_per_depth_map"],
+            "bfloat16": dtu["bfloat16_batch1"]["cli_ms_per_depth_map"],
+            "float32_batch1_full_float32": dtu["float32_batch1_full_float32"]["cli_ms_per_depth_map"],
+            "float32_batch2_full_float32": dtu["float32_batch2_full_float32"]["cli_ms_per_depth_map"],
+            "tnt_float32_11_views": tnt["cli_ms_per_depth_map"]},
+        "model_only_ms_per_depth_map": {"float32": paths["inference_f32"]["ms_per_depth_map"],
+                                        "bfloat16": paths["inference"]["ms_per_depth_map"]},
+        "fusion_ms_per_reference_view": {k: v["ms_per_reference_view"] for k, v in fusion.items()},
+        "fusion_ms_per_scan": {**{k: v["ms_per_scan"] for k, v in fusion.items()},
+                               "tnt": tnt["fusion_ms_per_scan"]},
+        "scoring_s": fusion["true_depth"]["scoring_s"],
+        "overall": fusion["true_depth"]["score"]["overall"],
+        "tnt_peak_memory_bytes": tnt["peak_memory_bytes"],
+    }
+    shutil.rmtree(work, ignore_errors=True)
+    return summary
+
+
+def machine_report() -> dict:
+    """What the card's machine has for images: the Python image packages,
+    and the libnvjpeg the codec loaded (its resolved path)."""
+    import importlib.util
+
+    from transmvsnet_tpu_torch.ops.cuda import build
+
+    build.library("image_codec")
+    with open("/proc/self/maps") as f:
+        nvjpeg = sorted({line.split()[-1] for line in f if "libnvjpeg" in line})
+    return {"modules": {m: importlib.util.find_spec(m) is not None for m in ("cv2", "PIL", "torchvision", "imageio")},
+            "libnvjpeg": nvjpeg}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
@@ -1195,6 +1727,7 @@ def main() -> int:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    print("machine: " + json.dumps(machine_report()), flush=True)
 
     gen = torch.Generator().manual_seed(1)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1209,12 +1742,15 @@ def main() -> int:
         paths["inference" + sfx] = main_path(dev, sfx)
         torch.cuda.empty_cache()
         paths["train" + sfx] = train_path(dev, sfx)
+    torch.cuda.empty_cache()
+    pipeline = evaluation_pipeline(dev, paths)
     for k in kernels:
         # Counts over each path's timed run (REQUESTS forwards, TRAIN_STEPS
         # steps); "launches" is the kernel's main path's (0 for row 4's
         # bf16 K5, which no path runs).
         k["launches_by_path"] = {p: r["launches"][k["name"]] for p, r in paths.items()}
         k["launches"] = k["launches_by_path"][k["main_path"]]
+    print("evaluation pipeline (" + smi + "): " + json.dumps(pipeline))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -37,3 +37,19 @@ def test_other_edits_change_the_target(csrc, monkeypatch, edit):
     else:
         monkeypatch.setattr(build, "NVCC_FLAGS", [*build.NVCC_FLAGS, "-lineinfo"])
     assert build._target(csrc / "a.cu") != before
+
+
+def test_link_flags_change_only_their_own_target(csrc, monkeypatch, tmp_path):
+    """A source's libraries (``LINK_FLAGS``, e.g. -lnvjpeg for the image
+    codec) enter its own command and hash; every other source keeps its
+    target, so adding a library rebuilds no kernel."""
+    nvcc = tmp_path / "cuda" / "bin" / "nvcc"
+    monkeypatch.setattr(build, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(build, "LINK_FLAGS", {})
+    a_before, b_before = build._target(csrc / "a.cu"), build._target(csrc / "b.cu")
+    assert build._link_flags(csrc / "a.cu") == []
+    monkeypatch.setattr(build, "LINK_FLAGS", {"a": ["-lnvjpeg"]})
+    assert build._target(csrc / "b.cu") == b_before
+    assert build._target(csrc / "a.cu") != a_before
+    lib_dir = nvcc.resolve().parents[1] / "lib64"
+    assert build._link_flags(csrc / "a.cu") == [f"-L{lib_dir}", "-Xlinker", f"-rpath,{lib_dir}", "-lnvjpeg"]

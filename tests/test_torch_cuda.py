@@ -836,3 +836,139 @@ def test_warp_fwd_is_bitwise_repeatable(dev, kernel, C):
     first, second = call(), call()
     torch.cuda.synchronize()
     assert first.abs().max() > 0 and torch.equal(first, second)
+
+
+# --- The evaluation pipeline on the card: nvJPEG and the device fuser ----
+
+CODEC_FIXTURES = ("synthetic_420", "synthetic_444")
+
+
+def _fixture(name):
+    import pathlib
+
+    return pathlib.Path(__file__).resolve().parent / "data" / "torch_codec" / name
+
+
+def _levels(img):
+    return (img * 255).round().to(torch.uint8).cpu().numpy().astype(int)
+
+
+@pytest.mark.parametrize("name", CODEC_FIXTURES)
+def test_nvjpeg_decode_matches_libjpeg(dev, name):
+    """nvJPEG's decode against the stored libjpeg decode: its IDCT and
+    chroma interpolation differ, by at most 1 level on average and 16 at
+    worst."""
+    import numpy as np
+
+    from transmvsnet_tpu_torch.data import image_io
+
+    before = image_io.jpeg_decode.launches
+    img = image_io.read_image(str(_fixture(f"{name}.jpg")), dev)
+    assert image_io.jpeg_decode.launches == before + 1
+    assert img.device.type == "cuda" and img.dtype == torch.float32 and img.shape == (64, 96, 3)
+    d = np.abs(_levels(img) - np.load(_fixture(f"{name}.npy")))
+    assert d.mean() <= 1.0 and d.max() <= 16, (d.mean(), d.max())
+
+
+@pytest.mark.parametrize("h,w", [(240, 320), (97, 131)])
+def test_nvjpeg_encode_round_trip(dev, tmp_path, h, w):
+    """write_jpeg on the card writes a baseline 4:2:0 JPEG that reads back
+    within the decode gate. The scene is smooth at pixel scale, as the
+    pipeline's 1600x1200 images are (a texture period of tens of pixels;
+    libjpeg's own round trip of such an image is about half a level)."""
+    import numpy as np
+
+    from transmvsnet_tpu_torch.data import image_io
+    from transmvsnet_tpu_torch.data.synthetic import FOCAL, SyntheticScene
+
+    img, _ = SyntheticScene(1, h, w, seed=0, focal=FOCAL * w / 24).render(0)
+    u8 = torch.from_numpy((img * 255).astype(np.uint8)).to(dev)
+    before = image_io.jpeg_encode.launches
+    image_io.write_jpeg(str(tmp_path / "a.jpg"), u8)
+    assert image_io.jpeg_encode.launches == before + 1
+    data = (tmp_path / "a.jpg").read_bytes()
+    sof = data.index(b"\xff\xc0")
+    assert data[sof + 11] == 0x22  # luma sampled 2x2: 4:2:0
+    d = np.abs(_levels(image_io.read_image(str(tmp_path / "a.jpg"), dev)) - u8.cpu().numpy().astype(int))
+    assert d.mean() <= 1.0 and d.max() <= 16, (d.mean(), d.max())
+
+
+def test_nvjpeg_raises_and_decodes_from_threads(dev, tmp_path):
+    import concurrent.futures
+
+    from transmvsnet_tpu_torch.data import image_io
+
+    (tmp_path / "bad.jpg").write_bytes(b"\xff\xd8\xff\xe0not a jpeg")
+    with pytest.raises(RuntimeError, match="nvJPEG"):
+        image_io.read_image(str(tmp_path / "bad.jpg"), dev)
+    data = _fixture("synthetic_420.jpg").read_bytes()
+    one = image_io.jpeg_decode(data, dev)
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        outs = list(pool.map(lambda _: image_io.jpeg_decode(data, dev), range(32)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, one) for o in outs)
+
+
+@pytest.mark.parametrize("src,dst", [((1200, 1600), (864, 1152)), ((1080, 1920), (1056, 1920)),
+                                     ((37, 53), (64, 80))])
+def test_resize_on_the_card_matches_the_taps_on_cpu(dev, src, dst):
+    from transmvsnet_tpu_torch.data.image_io import resize_bilinear, resize_taps
+
+    img = torch.rand(*src, 3, generator=torch.Generator().manual_seed(0))
+    got = resize_bilinear(img.to(dev), dst)
+    assert got.device.type == "cuda" and got.shape == (*dst, 3)
+    torch.testing.assert_close(got.cpu(), resize_taps(img, dst), rtol=0, atol=1e-6)
+
+
+def _write_fusion_scan(root, dev):
+    """A 4-view 64x96 synthetic scan: depths with 0.4% noise and a block of
+    zero depth per view, random confidences (tests/test_torch_fusion.py's
+    noisy scan, written without cv2)."""
+    import os
+
+    import numpy as np
+
+    from transmvsnet_tpu_torch.data.cams import write_cam_file
+    from transmvsnet_tpu_torch.data.image_io import write_jpeg
+    from transmvsnet_tpu_torch.data.pfm import save_pfm
+    from transmvsnet_tpu_torch.data.synthetic import SyntheticScene
+
+    scene = SyntheticScene(num_views=4, height=64, width=96)
+    rng = np.random.RandomState(5)
+    for sub in ("depth_est", "confidence", "cams", "images"):
+        os.makedirs(root / sub)
+    for v in range(scene.V):
+        img, depth = scene.render(v)
+        depth = (depth * (1 + 0.004 * rng.randn(*depth.shape))).astype(np.float32)
+        depth[20:30, 10 + 5 * v : 40 + 5 * v] = 0.0
+        save_pfm(str(root / f"depth_est/{v:0>8}.pfm"), depth)
+        save_pfm(str(root / f"confidence/{v:0>8}.pfm"), rng.rand(*depth.shape).astype(np.float32))
+        pair = np.zeros((2, 4, 4), dtype=np.float32)
+        pair[0] = scene.extrinsics[v]
+        pair[1, :3, :3] = scene.K
+        write_cam_file(str(root / f"cams/{v:0>8}_cam.txt"), pair, "1.0 0.01")
+        write_jpeg(str(root / f"images/{v:0>8}.jpg"), torch.from_numpy((img * 255).astype(np.uint8)).to(dev))
+    with open(root / "pair.txt", "w") as f:
+        f.write(f"{scene.V}\n")
+        for v in range(scene.V):
+            others = [o for o in range(scene.V) if o != v]
+            f.write(f"{v}\n{len(others)} " + " ".join(f"{o} 10.0" for o in others) + "\n")
+
+
+@pytest.mark.parametrize("mode", ["dynamic", "normal"])
+def test_device_fuser_matches_its_cpu_run(dev, tmp_path, mode):
+    """The fuser on the card against the same code on CPU tensors: kept
+    pixels equal, points equal to float64 rounding (the CPU run reads the
+    reference image with PIL; colours within the decoders' levels)."""
+    from transmvsnet_tpu_torch.data.cams import read_pair_file
+    from transmvsnet_tpu_torch.fusion.dynamic import FusionParams, fuse_view
+
+    _write_fusion_scan(tmp_path, dev)
+    params = FusionParams(photo_threshold=0.3, thres_view=2, mode=mode)
+    for ref, srcs in read_pair_file(str(tmp_path / "pair.txt")):
+        xyz, rgb, mask = fuse_view(str(tmp_path), ref, srcs, params, dev)
+        assert xyz.device.type == "cuda" and xyz.dtype == torch.float64
+        cxyz, crgb, cmask = fuse_view(str(tmp_path), ref, srcs, params, torch.device("cpu"))
+        assert torch.equal(mask.cpu(), cmask) and 0.2 < cmask.float().mean() < 1.0
+        torch.testing.assert_close(xyz.cpu(), cxyz, rtol=1e-9, atol=1e-9)
+        assert (rgb.cpu().int() - crgb.int()).abs().max() <= 16

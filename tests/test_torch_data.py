@@ -35,7 +35,7 @@ def scans(tmp_path_factory):
     """The same scene materialised by each package."""
     root = tmp_path_factory.mktemp("scans")
     kw = dict(nviews=4, num_samples=1, height=64, width=96, ndepths=48)
-    SyntheticDataset(**kw).materialize(str(root / "ours"))
+    SyntheticDataset(**kw).materialize(str(root / "ours"), device="cpu")
     JaxSyntheticDataset(**kw).materialize(str(root / "theirs"))
     return root / "ours", root / "theirs"
 
@@ -52,7 +52,7 @@ def test_materialize_writes_the_same_files(scans):
 def test_general_eval_sample_matches_jax(scans, nviews):
     ours, _ = scans
     kw = dict(nviews=nviews, ndepths=48, max_h=48, max_w=80)
-    a = GeneralEvalDataset(str(ours), ["synth0"], **kw)
+    a = GeneralEvalDataset(str(ours), ["synth0"], device="cpu", **kw)
     b = JaxGeneralEvalDataset(str(ours), ["synth0"], **kw)
     assert len(a) == len(b) == 4
     for i in (0, 3):

@@ -1,8 +1,10 @@
 """The PyTorch port stands alone and defaults to the card.
 
 An AST walk finds no import of jax, flax or the JAX package in
-``transmvsnet_tpu_torch/`` or ``chip_smoke.py``; on a machine without CUDA
-the entry points raise instead of quietly running on the CPU.
+``transmvsnet_tpu_torch/`` (the evaluation pipeline's image IO, fuser and
+scorer included) or ``chip_smoke.py``, and no top-level cv2 or PIL; on a
+machine without CUDA the entry points and the image readers raise instead
+of quietly running on the CPU.
 """
 
 import ast
@@ -41,6 +43,13 @@ def test_port_imports_no_jax_package():
     assert not bad, bad
 
 
+def test_the_walk_covers_the_evaluation_pipeline():
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for rel in ("data/image_io.py", "fusion/dynamic.py", "fusion/ply.py", "eval/dtu_eval.py",
+                "tools/fuse.py", "tools/eval_dtu.py"):
+        assert f"transmvsnet_tpu_torch/{rel}" in walked, rel
+
+
 def test_no_top_level_cv2_or_pil():
     """The card's machine has neither; they are imported inside functions."""
     bad = []
@@ -71,11 +80,32 @@ def test_infer_cli_defaults_to_cuda(no_cuda, tmp_path):
     from transmvsnet_tpu_torch.data.synthetic import SyntheticDataset
     from transmvsnet_tpu_torch.tools import infer
 
-    SyntheticDataset(nviews=3, num_samples=1, height=32, width=32).materialize(str(tmp_path))
+    SyntheticDataset(nviews=3, num_samples=1, height=32, width=32).materialize(
+        str(tmp_path), device="cpu")
     (tmp_path / "list.txt").write_text("synth0\n")
     with pytest.raises(RuntimeError, match="cuda"):
         infer.main(["--datapath", str(tmp_path), "--testlist", str(tmp_path / "list.txt"),
                     "--outdir", str(tmp_path / "out"), "--num_view", "3"])
+
+
+def test_fuse_cli_defaults_to_cuda(no_cuda, tmp_path):
+    from transmvsnet_tpu_torch.tools import fuse
+
+    (tmp_path / "list.txt").write_text("scan1\n")
+    with pytest.raises(RuntimeError, match="cuda"):
+        fuse.main(["--testpath", str(tmp_path), "--testlist", str(tmp_path / "list.txt"),
+                   "--outdir", str(tmp_path / "plys")])
+
+
+def test_image_readers_default_to_cuda(no_cuda, tmp_path):
+    from transmvsnet_tpu_torch.data.datasets import GeneralEvalDataset, TnTEvalDataset
+    from transmvsnet_tpu_torch.data.synthetic import SyntheticDataset
+
+    for make in (lambda: GeneralEvalDataset(str(tmp_path), []), lambda: TnTEvalDataset(str(tmp_path), []),
+                 lambda: SyntheticDataset(nviews=2, num_samples=1, height=32, width=32).materialize(str(tmp_path))):
+        with pytest.raises(RuntimeError, match="cuda"):
+            make()
+    assert not any(tmp_path.iterdir())
 
 
 def test_train_cli_defaults_to_cuda(no_cuda, tmp_path):

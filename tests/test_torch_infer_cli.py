@@ -22,6 +22,17 @@ VIEWS = 3
 SIMILARITY_GAIN = 1000.0
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs six workers at once, and torch's intra-op threads
+    then wait on one another at every op: the TnT CLI test took 103 s with
+    the default threads beside six busy processes, 8 s with one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _model():
     """A seeded model with non-zero DCN offset convs and peaked probability
     volumes, as a trained checkpoint would have: the cost regularisers'
@@ -45,7 +56,7 @@ def run(tmp_path_factory):
     root = tmp_path_factory.mktemp("infer")
     data, out = root / "data", root / "out"
     SyntheticDataset(nviews=VIEWS, num_samples=1, height=64, width=64,
-                     ndepths=NUM_HYP).materialize(str(data))
+                     ndepths=NUM_HYP).materialize(str(data), device="cpu")
     (root / "list.txt").write_text("synth0\n")
     ckpt = root / "model.ckpt"
     torch.save({"epoch": 0, "model": _model().state_dict()}, ckpt)
@@ -76,7 +87,7 @@ def test_writes_the_output_contract(run):
 def test_pfm_depth_is_the_in_memory_forward(run):
     data, scan = run
     sample = GeneralEvalDataset(str(data), ["synth0"], nviews=VIEWS, ndepths=NUM_HYP,
-                                max_h=64, max_w=64)[0]
+                                max_h=64, max_w=64, device="cpu")[0]
     with torch.no_grad():
         out = _model()(
             torch.from_numpy(sample["imgs"][None]),

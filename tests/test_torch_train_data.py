@@ -69,8 +69,17 @@ def test_cam_conventions_match_jax(tmp_path):
     # The default stays the evaluation convention of the port's existing callers.
     default = cams.read_cam_file(str(tmp_path / "eval.txt"))
     assert default.intrinsics[0, 0] == pytest.approx(361.5 / 4)
+    # Tanks and Temples' (depth_min, depth_max) line, as the JAX package reads it.
+    _write_cam(tmp_path / "minmax.txt", rng, "2.0 10.0")
+    ours = cams.read_cam_file(str(tmp_path / "minmax.txt"), ndepths=96, convention="minmax")
+    theirs = jcams.read_cam_file(str(tmp_path / "minmax.txt"), "minmax", ndepths=96)
+    np.testing.assert_array_equal(ours.intrinsics, theirs.intrinsics)
+    np.testing.assert_array_equal(ours.extrinsics, theirs.extrinsics)
+    assert (ours.depth_min, ours.depth_interval, ours.depth_max) == (
+        theirs.depth_min, theirs.depth_interval, theirs.depth_max)
+    # BlendedMVS's convention is not ported yet.
     with pytest.raises(ValueError, match="convention"):
-        cams.read_cam_file(str(tmp_path / "eval.txt"), convention="minmax")
+        cams.read_cam_file(str(tmp_path / "eval.txt"), convention="bld")
 
 
 @pytest.fixture(scope="module")

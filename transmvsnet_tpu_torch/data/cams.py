@@ -1,8 +1,10 @@
-"""Camera-file and pair-file IO (numpy only).
+"""Camera-file and pair-file IO (numpy), and the input resize that
+rescales the intrinsics with the image.
 
 The MVSNet cam-txt format: 'extrinsic' + 4x4 on lines 1-4, 'intrinsic' +
 3x3 on lines 7-9, and a depth line (line 11), read per convention
-(reference datasets/dtu_yao.py:53-67, general_eval.py:66-99):
+(reference datasets/dtu_yao.py:53-67, general_eval.py:66-99,
+tnt_eval.py:69-83):
 
 - "eval": full-resolution intrinsics (divided by 4 here: the model's
   stage-1 convention) and a depth line (depth_min, depth_interval[,
@@ -10,9 +12,11 @@ The MVSNet cam-txt format: 'extrinsic' + 4x4 on lines 1-4, 'intrinsic' +
   from (min, num, interval).
 - "dtu_train": (depth_min, depth_interval); intrinsics already at 1/4
   resolution.
+- "minmax" (Tanks and Temples): full-resolution intrinsics (/4 here) and
+  (depth_min, depth_max); the interval is (max - min) / ndepths, not
+  scaled.
 
-The interval is scaled by ``interval_scale`` in both. ``cv2`` is imported
-inside the function that resizes images.
+"eval" and "dtu_train" scale the interval by ``interval_scale``.
 """
 
 from __future__ import annotations
@@ -20,6 +24,9 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
+
+from transmvsnet_tpu_torch.data.image_io import resize_bilinear
 
 
 @dataclasses.dataclass
@@ -28,6 +35,7 @@ class CameraInfo:
     extrinsics: np.ndarray  # [4, 4]
     depth_min: float
     depth_interval: float
+    depth_max: float | None = None
 
     def proj_pair(self) -> np.ndarray:
         """Stack into the model's [2, 4, 4] (extrinsics, homogeneous-K) pair."""
@@ -41,8 +49,8 @@ def read_cam_file(
     path: str, interval_scale: float = 1.0, ndepths: int = 192, convention: str = "eval"
 ) -> CameraInfo:
     """A cam file, intrinsics at stage-1 resolution, read per ``convention``
-    ("eval" or "dtu_train")."""
-    if convention not in ("eval", "dtu_train"):
+    ("eval", "dtu_train" or "minmax")."""
+    if convention not in ("eval", "dtu_train", "minmax"):
         raise ValueError(f"unknown cam convention {convention!r}")
     with open(path) as f:
         lines = [line.rstrip() for line in f.readlines()]
@@ -54,6 +62,9 @@ def read_cam_file(
     if convention == "dtu_train":
         return CameraInfo(intr, extr, depth_min, depth_interval * interval_scale)
     intr[:2, :] /= 4.0
+    if convention == "minmax":
+        depth_max = float(tokens[1])
+        return CameraInfo(intr, extr, depth_min, (depth_max - depth_min) / ndepths, depth_max)
     if len(tokens) >= 3:
         depth_max = depth_min + int(float(tokens[2])) * depth_interval
         depth_interval = (depth_max - depth_min) / ndepths
@@ -87,12 +98,10 @@ def write_cam_file(path: str, proj_pair: np.ndarray, depth_line: str = "") -> No
 
 
 def scale_mvs_input(
-    img: np.ndarray, intrinsics: np.ndarray, max_w: int, max_h: int, base: int = 32
-) -> tuple[np.ndarray, np.ndarray]:
-    """Resize to fit (max_h, max_w), snapped down to multiples of ``base``,
-    rescaling intrinsics (reference general_eval.py:114-131)."""
-    import cv2
-
+    img: torch.Tensor, intrinsics: np.ndarray, max_w: int, max_h: int, base: int = 32
+) -> tuple[torch.Tensor, np.ndarray]:
+    """Resize img [H, W, 3] to fit (max_h, max_w), snapped down to multiples
+    of ``base``, rescaling intrinsics (reference general_eval.py:114-131)."""
     h, w = img.shape[:2]
     if h > max_h or w > max_w:
         scale = 1.0 * max_h / h
@@ -105,5 +114,4 @@ def scale_mvs_input(
     intrinsics = intrinsics.copy()
     intrinsics[0, :] *= 1.0 * new_w / w
     intrinsics[1, :] *= 1.0 * new_h / h
-    img = cv2.resize(img, (int(new_w), int(new_h)))
-    return img, intrinsics
+    return resize_bilinear(img, (int(new_h), int(new_w))), intrinsics

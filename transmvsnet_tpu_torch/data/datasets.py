@@ -1,7 +1,7 @@
-"""DTU training and DTU-test-style evaluation datasets (reference
-datasets/dtu_yao.py, general_eval.py).
+"""DTU training, DTU-test-style and Tanks-and-Temples evaluation datasets
+(reference datasets/dtu_yao.py, general_eval.py, tnt_eval.py).
 
-Both produce the model's sample contract, channel-last numpy:
+All produce the model's sample contract, channel-last numpy:
 
   {"imgs": [V, H, W, 3] float32,
    "proj_matrices": {"stage1".."stage3": [V, 2, 4, 4]},
@@ -9,16 +9,21 @@ Both produce the model's sample contract, channel-last numpy:
    train only: "depth"/"mask": {"stageN": [h, w]}, "depth_interval": float,
    eval only:  "filename": "scan/{}/NNNNNNNN{}"}
 
-``cv2`` and ``PIL`` are imported inside the functions that read images;
-nearest-neighbour downsampling is numpy (``resize_nearest``).
+Images go through ``data/image_io.py``. The evaluation datasets take a
+``device`` (CUDA unless the caller says CPU): they decode each JPEG there
+(nvJPEG on the card, PIL on the CPU) and resize it there, and hand back
+numpy. The training data are PNGs, decoded on the host.
+Nearest-neighbour downsampling is numpy (``resize_nearest``).
 """
 
 from __future__ import annotations
 
 import os
+import threading
 from typing import Any
 
 import numpy as np
+import torch
 
 from transmvsnet_tpu_torch.data.cams import (
     CameraInfo,
@@ -26,13 +31,9 @@ from transmvsnet_tpu_torch.data.cams import (
     read_pair_file,
     scale_mvs_input,
 )
+from transmvsnet_tpu_torch.data.image_io import read_image, read_png, resize_bilinear
 from transmvsnet_tpu_torch.data.pfm import read_pfm
-
-
-def _read_img(path: str) -> np.ndarray:
-    from PIL import Image
-
-    return np.asarray(Image.open(path), dtype=np.float32) / 255.0
+from transmvsnet_tpu_torch.models.blocks import resolve_device
 
 
 def stage_proj_matrices(pairs: list[np.ndarray]) -> dict[str, np.ndarray]:
@@ -71,6 +72,17 @@ def read_scan_list(path: str) -> list[str]:
         return [line.rstrip() for line in f if line.strip()]
 
 
+def _fit_view(img: torch.Tensor, intr: np.ndarray, std_hw: tuple[int, int]):
+    """A view resized to the sample's (H, W) where it differs, with its
+    intrinsics rescaled to match."""
+    if tuple(img.shape[:2]) == tuple(std_hw):
+        return img, intr
+    intr = intr.copy()
+    intr[0, :] *= std_hw[1] / img.shape[1]
+    intr[1, :] *= std_hw[0] / img.shape[0]
+    return resize_bilinear(img, std_hw), intr
+
+
 class GeneralEvalDataset:
     """Resizes to fit (max_h, max_w) snapped to multiples of 32, rescales
     the intrinsics, pins every sample to the first sample's resolution and
@@ -85,13 +97,16 @@ class GeneralEvalDataset:
         interval_scale: float = 1.0,
         max_h: int = 864,
         max_w: int = 1152,
+        device: str | torch.device = "cuda",
     ):
         self.datapath = datapath
+        self.device = resolve_device(device)
         self.nviews = nviews
         self.ndepths = ndepths
         self.interval_scale = interval_scale
         self.max_h, self.max_w = max_h, max_w
         self._run_hw: tuple[int, int] | None = None
+        self._run_hw_lock = threading.Lock()  # the loader builds samples on threads
         scans = read_scan_list(listfile) if isinstance(listfile, str) else list(listfile)
         self.metas: list[tuple[str, int, list[int]]] = []
         for scan in scans:
@@ -104,8 +119,6 @@ class GeneralEvalDataset:
         return len(self.metas)
 
     def __getitem__(self, idx: int) -> dict[str, Any]:
-        import cv2
-
         scan, ref_view, src_views = self.metas[idx]
         view_ids = [ref_view] + src_views[: self.nviews - 1]
         imgs, pairs = [], []
@@ -116,20 +129,15 @@ class GeneralEvalDataset:
             if not os.path.exists(img_path):
                 img_path = os.path.join(self.datapath, f"{scan}/images/{vid:0>8}.jpg")
             cam_path = os.path.join(self.datapath, f"{scan}/cams/{vid:0>8}_cam.txt")
-            img = _read_img(img_path)
+            img = read_image(img_path, self.device)
             cam = read_cam_file(cam_path, interval_scale=self.interval_scale, ndepths=self.ndepths)
             img, intr = scale_mvs_input(img, cam.intrinsics, self.max_w, self.max_h)
             if i == 0:
-                if self._run_hw is None:
-                    self._run_hw = tuple(img.shape[:2])
+                with self._run_hw_lock:
+                    if self._run_hw is None:
+                        self._run_hw = tuple(img.shape[:2])
                 std_hw = self._run_hw
-            if img.shape[:2] != std_hw:
-                sh = std_hw[0] / img.shape[0]
-                sw = std_hw[1] / img.shape[1]
-                img = cv2.resize(img, (std_hw[1], std_hw[0]))
-                intr = intr.copy()
-                intr[0, :] *= sw
-                intr[1, :] *= sh
+            img, intr = _fit_view(img, intr, std_hw)
             imgs.append(img)
             pairs.append(
                 CameraInfo(intr, cam.extrinsics, cam.depth_min, cam.depth_interval).proj_pair()
@@ -142,7 +150,116 @@ class GeneralEvalDataset:
                     dtype=np.float32,
                 )
         return {
-            "imgs": np.stack(imgs).astype(np.float32),
+            "imgs": torch.stack(imgs).cpu().numpy(),
+            "proj_matrices": stage_proj_matrices(pairs),
+            "depth_values": depth_values,
+            "filename": scan + "/{}/" + f"{view_ids[0]:0>8}" + "{}",
+        }
+
+
+class TnTEvalDataset:
+    """Tanks and Temples evaluation (reference datasets/tnt_eval.py): per-scene
+    native sizes, cams from cams_1/ in the "minmax" convention, optional
+    inverse-depth hypotheses.
+
+    With ``pad_views`` every sample has exactly ``nviews`` views (a short
+    source list padded with its best view, general_eval.py:53-57), else
+    the reference's per-sample clipping to the views available.
+    ``bucket_hw`` (H, W) resizes every scene to one size, snapped down to
+    multiples of 32, rescaling the intrinsics with it.
+    """
+
+    IMAGE_SIZES = {
+        "Family": (1920, 1080),
+        "Francis": (1920, 1080),
+        "Horse": (1920, 1080),
+        "Lighthouse": (2048, 1080),
+        "M60": (2048, 1080),
+        "Panther": (2048, 1080),
+        "Playground": (1920, 1080),
+        "Train": (1920, 1080),
+        "Auditorium": (1920, 1080),
+        "Ballroom": (1920, 1080),
+        "Courtroom": (1920, 1080),
+        "Museum": (1920, 1080),
+        "Palace": (1920, 1080),
+        "Temple": (1920, 1080),
+    }
+
+    def __init__(
+        self,
+        datapath: str,
+        listfile: str | list[str],
+        nviews: int = 11,
+        ndepths: int = 192,
+        interval_scale: float = 1.0,
+        inverse_depth: bool = False,
+        pad_views: bool = True,
+        bucket_hw: tuple[int, int] | None = None,
+        device: str | torch.device = "cuda",
+    ):
+        self.datapath = datapath
+        self.nviews = nviews
+        self.ndepths = ndepths
+        self.interval_scale = interval_scale
+        self.inverse_depth = inverse_depth
+        self.pad_views = pad_views
+        self.bucket_hw = bucket_hw
+        self.device = resolve_device(device)
+        scans = read_scan_list(listfile) if isinstance(listfile, str) else list(listfile)
+        self.metas: list[tuple[str, int, list[int]]] = []
+        for scan in scans:
+            for ref_view, src_views in read_pair_file(os.path.join(datapath, f"{scan}/pair.txt")):
+                self.metas.append((scan, ref_view, src_views))
+
+    def __len__(self) -> int:
+        return len(self.metas)
+
+    def __getitem__(self, idx: int) -> dict[str, Any]:
+        scan, ref_view, src_views = self.metas[idx]
+        if self.pad_views:
+            if len(src_views) < self.nviews - 1 and src_views:
+                src_views = src_views + [src_views[0]] * (self.nviews - 1 - len(src_views))
+            nviews = self.nviews
+        else:
+            nviews = min(self.nviews, len(src_views) + 1)
+        view_ids = [ref_view] + src_views[: nviews - 1]
+        if self.bucket_hw is not None:
+            max_h, max_w = self.bucket_hw
+            std_hw = (max_h // 32 * 32, max_w // 32 * 32)
+        else:
+            max_w, max_h = self.IMAGE_SIZES[scan]
+            std_hw = None
+
+        imgs, pairs = [], []
+        depth_values = None
+        for i, vid in enumerate(view_ids):
+            img_path = os.path.join(self.datapath, f"{scan}/images/{vid:0>8}.jpg")
+            cam_path = os.path.join(self.datapath, f"{scan}/cams_1/{vid:0>8}_cam.txt")
+            img = read_image(img_path, self.device)
+            cam = read_cam_file(cam_path, ndepths=self.ndepths, convention="minmax")
+            img, intr = scale_mvs_input(img, cam.intrinsics, max_w, max_h)
+            if std_hw is None:
+                std_hw = tuple(img.shape[:2])
+            img, intr = _fit_view(img, intr, std_hw)
+            imgs.append(img)
+            pairs.append(
+                CameraInfo(intr, cam.extrinsics, cam.depth_min, cam.depth_interval).proj_pair()
+            )
+            if i == 0:
+                if not self.inverse_depth:
+                    depth_values = np.arange(
+                        cam.depth_min,
+                        cam.depth_interval * self.ndepths + cam.depth_min,
+                        cam.depth_interval,
+                        dtype=np.float32,
+                    )[: self.ndepths]
+                else:
+                    depth_end = cam.depth_max - cam.depth_interval / self.interval_scale
+                    inv = np.linspace(1.0 / depth_end, 1.0 / cam.depth_min, self.ndepths, endpoint=False)
+                    depth_values = (1.0 / inv).astype(np.float32)
+        return {
+            "imgs": torch.stack(imgs).cpu().numpy(),
             "proj_matrices": stage_proj_matrices(pairs),
             "depth_values": depth_values,
             "filename": scan + "/{}/" + f"{view_ids[0]:0>8}" + "{}",
@@ -198,8 +315,6 @@ class DTUTrainDataset:
         return ds[sh : sh + 512, sw : sw + 640]
 
     def __getitem__(self, idx: int) -> dict[str, Any]:
-        from PIL import Image
-
         scan, light, ref_view, src_views = self.metas[idx]
         view_ids = [ref_view] + src_views[: self.nviews - 1]
         imgs, pairs = [], []
@@ -209,11 +324,11 @@ class DTUTrainDataset:
             )
             cam_path = os.path.join(self.datapath, f"Cameras/train/{vid:0>8}_cam.txt")
             cam = read_cam_file(cam_path, interval_scale=self.interval_scale, convention="dtu_train")
-            imgs.append(self.prepare_img(_read_img(img_path)))
+            imgs.append(self.prepare_img(read_image(img_path, "cpu").numpy()))
             pairs.append(cam.proj_pair())
             if i == 0:
                 raw = os.path.join(self.datapath, f"Depths_raw/{scan}")
-                mask_hr = np.asarray(Image.open(f"{raw}/depth_visual_{vid:0>4}.png"), dtype=np.float32)
+                mask_hr = read_png(f"{raw}/depth_visual_{vid:0>4}.png").astype(np.float32)
                 mask_ms = pyramid(self.prepare_img((mask_hr > 10).astype(np.float32)))
                 depth_ms = pyramid(
                     self.prepare_img(read_pfm(f"{raw}/depth_map_{vid:0>4}.pfm")[0].astype(np.float32))

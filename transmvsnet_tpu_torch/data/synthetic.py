@@ -2,8 +2,8 @@
 
 A textured slanted plane observed by a ring of pinhole cameras: a training
 and inference fixture that needs no data on disk. ``materialize`` writes it
-in the DTU evaluation layout (images/, cams/, pair.txt) for the CLI;
-``cv2`` is imported inside it.
+in the DTU evaluation layout (images/, cams/, pair.txt) for the CLI,
+its JPEGs through ``data/image_io.write_jpeg`` on the device it is given.
 """
 
 from __future__ import annotations
@@ -12,8 +12,11 @@ import os
 from typing import Any
 
 import numpy as np
+import torch
 
 from transmvsnet_tpu_torch.data.datasets import pyramid
+from transmvsnet_tpu_torch.data.image_io import write_jpeg
+from transmvsnet_tpu_torch.models.blocks import resolve_device
 
 FOCAL = 120.0
 PLANE_NORMAL = (0.15, -0.1, 1.0)
@@ -30,15 +33,19 @@ def _texture(x: np.ndarray, y: np.ndarray) -> np.ndarray:
 
 
 class SyntheticScene:
-    """V cameras looking at the plane n·p = c from ~(0, 0, 0) along +z."""
+    """V cameras looking at the plane n·p = c from ~(0, 0, 0) along +z.
+    ``focal`` in pixels; the default (the JAX package's) suits ~96x64
+    images: larger images keep that field of view with a focal scaled by
+    their width over 96."""
 
-    def __init__(self, num_views: int = 5, height: int = 64, width: int = 96, seed: int = 0):
+    def __init__(self, num_views: int = 5, height: int = 64, width: int = 96, seed: int = 0,
+                 focal: float = FOCAL):
         self.V, self.H, self.W = num_views, height, width
         n = np.asarray(PLANE_NORMAL, dtype=np.float64)
         self.n = n / np.linalg.norm(n)
         self.c = PLANE_OFFSET
         self.K = np.array(
-            [[FOCAL, 0, width / 2.0], [0, FOCAL, height / 2.0], [0, 0, 1]], dtype=np.float64
+            [[focal, 0, width / 2.0], [0, focal, height / 2.0], [0, 0, 1]], dtype=np.float64
         )
         rng = np.random.RandomState(seed)
         self.extrinsics = []
@@ -95,11 +102,12 @@ class SyntheticDataset:
         num_samples: int = 4,
         height: int = 64,
         width: int = 96,
+        focal: float = FOCAL,
         **kwargs,
     ):
         self.ndepths = ndepths
         self.num_samples = num_samples
-        self.scenes = [SyntheticScene(nviews, height, width, seed=i) for i in range(num_samples)]
+        self.scenes = [SyntheticScene(nviews, height, width, seed=i, focal=focal) for i in range(num_samples)]
 
     def __len__(self) -> int:
         return self.num_samples
@@ -131,12 +139,12 @@ class SyntheticDataset:
             "filename": f"synth{idx}" + "/{}/" + "00000000{}",
         }
 
-    def materialize(self, outdir: str) -> None:
-        """Write DTU-eval-layout files (images/, cams/, pair.txt)."""
-        import cv2
-
+    def materialize(self, outdir: str, device: str | torch.device = "cuda") -> None:
+        """Write DTU-eval-layout files (images/, cams/, pair.txt), encoding
+        the JPEGs on ``device`` (nvJPEG on CUDA, cv2 on the CPU)."""
         from transmvsnet_tpu_torch.data.cams import write_cam_file
 
+        device = resolve_device(device)
         for idx, scene in enumerate(self.scenes):
             scan_dir = os.path.join(outdir, f"synth{idx}")
             os.makedirs(os.path.join(scan_dir, "images"), exist_ok=True)
@@ -145,9 +153,9 @@ class SyntheticDataset:
             interval = (hi - lo) / self.ndepths
             for v in range(scene.V):
                 img, _ = scene.render(v)
-                cv2.imwrite(
+                write_jpeg(
                     os.path.join(scan_dir, f"images/{v:0>8}.jpg"),
-                    cv2.cvtColor((img * 255).astype(np.uint8), cv2.COLOR_RGB2BGR),
+                    torch.from_numpy((img * 255).astype(np.uint8)).to(device),
                 )
                 pair = np.zeros((2, 4, 4), dtype=np.float32)
                 pair[0] = scene.extrinsics[v]

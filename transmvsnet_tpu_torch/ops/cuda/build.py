@@ -5,7 +5,9 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by its own
 at the repository root, then loaded with ``ctypes``. The hash covers the
 source, every header under ``csrc`` (``*.cuh``, which a source may
 include) and the flags, so an edited source or header is rebuilt and an
-unchanged one is reused.
+unchanged one is reused. ``LINK_FLAGS`` adds libraries per source
+(``image_codec.cu`` links the CUDA toolkit's ``libnvjpeg``); a source
+without any hashes as before.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+LINK_FLAGS = {"image_codec": ["-lnvjpeg"]}
 
 _libraries: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}
@@ -41,11 +44,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels are built on a machine with the CUDA toolkit")
 
 
+def _link_flags(src: pathlib.Path) -> list[str]:
+    """The source's libraries, found at run time where nvcc's toolkit keeps
+    them (rpath)."""
+    libs = LINK_FLAGS.get(src.stem, [])
+    if not libs:
+        return []
+    lib_dir = pathlib.Path(_nvcc()).resolve().parents[1] / "lib64"
+    return [f"-L{lib_dir}", "-Xlinker", f"-rpath,{lib_dir}", *libs]
+
+
 def _target(src: pathlib.Path) -> pathlib.Path:
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    if src.stem in LINK_FLAGS:
+        h.update(" ".join(_link_flags(src)).encode())
     digest = h.hexdigest()
     return BUILD_DIR / f"{src.stem}-{digest[:12]}.so"
 
@@ -63,7 +78,7 @@ def build_all() -> float:
             continue
         if not target.exists():
             tmp = target.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src), *_link_flags(src)]
             proc = subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
             )

@@ -9,9 +9,18 @@ float PFM output. Per reference view it writes, under outdir/<scan>/:
   confidence/NNNNNNNN.pfm    stage1 * stage2 * stage3 confidence
   cams/NNNNNNNN_cam.txt      MVSNet cam at model resolution
   images/NNNNNNNN.jpg        the (resized) reference image
-and copies each scan's pair.txt, ready for fusion. Runs on CUDA unless
-``--device cpu``. ``--loadckpt`` takes a torch state dict in the
-reference's ``.ckpt`` layout.
+and copies each scan's pair.txt, ready for fusion (``tools/fuse.py``).
+Runs on CUDA unless ``--device cpu``: images are decoded, resized and
+written on that device (nvJPEG on the card; PIL and cv2 on the CPU).
+``--loadckpt`` takes a torch state dict in the reference's ``.ckpt``
+layout. ``--batch_size`` samples go through the model at once, built by
+the loader's threads.
+
+Tanks and Temples (reference scripts/test_tnt.sh):
+
+    python -m transmvsnet_tpu_torch.tools.infer --dataset tnt --datapath <TNT> \\
+        --testlist lists/tnt/intermediate.txt --outdir ./out --num_view 11 \\
+        --inverse_depth [--bucket_hw 1056,1920]
 """
 
 from __future__ import annotations
@@ -26,12 +35,20 @@ import torch
 
 from transmvsnet_tpu_torch.config import ModelConfig
 from transmvsnet_tpu_torch.data.cams import write_cam_file
-from transmvsnet_tpu_torch.data.datasets import GeneralEvalDataset, read_scan_list
+from transmvsnet_tpu_torch.data.datasets import GeneralEvalDataset, TnTEvalDataset, read_scan_list
+from transmvsnet_tpu_torch.data.image_io import write_jpeg
+from transmvsnet_tpu_torch.data.loader import ShardedLoader
 from transmvsnet_tpu_torch.data.pfm import save_pfm
 from transmvsnet_tpu_torch.data.synthetic import SyntheticDataset
 from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet, blended_confidence
 
-DATASETS = {"general_eval": GeneralEvalDataset, "synthetic": SyntheticDataset}
+DATASETS = {
+    "general_eval": GeneralEvalDataset,
+    "dtu_eval": GeneralEvalDataset,
+    "tnt": TnTEvalDataset,
+    "tnt_eval": TnTEvalDataset,
+    "synthetic": SyntheticDataset,
+}
 
 
 def parse_args(argv=None):
@@ -41,6 +58,7 @@ def parse_args(argv=None):
     p.add_argument("--testlist", required=True)
     p.add_argument("--outdir", required=True)
     p.add_argument("--loadckpt", default="")
+    p.add_argument("--batch_size", type=int, default=1)
     p.add_argument("--num_view", type=int, default=5)
     p.add_argument("--numdepth", type=int, default=192)
     p.add_argument("--interval_scale", type=float, default=1.0)
@@ -51,6 +69,11 @@ def parse_args(argv=None):
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                    help="activation dtype: float32 (the reference's numerics) or "
                         "bfloat16 (the faster path)")
+    p.add_argument("--inverse_depth", action="store_true",
+                   help="TnT: hypotheses uniform in inverse depth (reference "
+                        "datasets/tnt_eval.py:174-182)")
+    p.add_argument("--bucket_hw", default="",
+                   help="TnT: resize every scene to one 'H,W' (default: per-scene native sizes)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -67,7 +90,8 @@ def load_checkpoint(model: torch.nn.Module, path: str) -> None:
 
 
 def save_outputs(outdir, filename_tpl, depth, confidence, cam_pair, img):
-    import cv2
+    """One reference view's files; img is its float [H, W, 3] image as a
+    tensor, whose device encodes the JPEG."""
 
     def path(kind, suffix):
         p = os.path.join(outdir, filename_tpl.format(kind, suffix))
@@ -77,23 +101,36 @@ def save_outputs(outdir, filename_tpl, depth, confidence, cam_pair, img):
     save_pfm(path("depth_est", ".pfm"), depth.astype(np.float32))
     save_pfm(path("confidence", ".pfm"), confidence.astype(np.float32))
     write_cam_file(path("cams", "_cam.txt"), cam_pair)
-    img_u8 = np.clip(img * 255.0, 0, 255).astype(np.uint8)
-    cv2.imwrite(path("images", ".jpg"), cv2.cvtColor(img_u8, cv2.COLOR_RGB2BGR))
+    write_jpeg(path("images", ".jpg"), (img * 255.0).clamp(0, 255).to(torch.uint8))
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    scans = read_scan_list(args.testlist)
+def build_dataset(args, scans):
+    cls = DATASETS[args.dataset]
     kwargs = dict(
         datapath=args.datapath,
         listfile=scans,
         nviews=args.num_view,
         ndepths=args.numdepth,
         interval_scale=args.interval_scale,
+        device=args.device,
     )
-    if args.dataset == "general_eval":
+    if cls is GeneralEvalDataset:
         kwargs.update(max_h=args.max_h, max_w=args.max_w)
-    dataset = DATASETS[args.dataset](**kwargs)
+    if cls is TnTEvalDataset:
+        kwargs.update(inverse_depth=args.inverse_depth)
+        if args.bucket_hw:
+            h, w = (int(x) for x in args.bucket_hw.split(","))
+            kwargs.update(bucket_hw=(h, w))
+    return cls(**kwargs)
+
+
+def main(argv=None) -> list[float]:
+    """Runs inference; returns each batch's wall seconds (loader wait,
+    forward, outputs written)."""
+    args = parse_args(argv)
+    scans = read_scan_list(args.testlist)
+    dataset = build_dataset(args, scans)
+    loader = ShardedLoader(dataset, args.batch_size, num_workers=2)
 
     cfg = ModelConfig(
         ndepths=tuple(int(x) for x in args.ndepths.split(",")),
@@ -107,26 +144,24 @@ def main(argv=None):
     model.eval()
     dev = next(model.parameters()).device
 
-    for i in range(len(dataset)):
-        t0 = time.time()
-        sample = dataset[i]
+    seconds = []
+    t0 = time.perf_counter()
+    for i, raw in enumerate(loader):
+        imgs = torch.from_numpy(raw["imgs"]).to(dev)
         with torch.no_grad():
             out = model(
-                torch.from_numpy(sample["imgs"][None]).to(dev),
-                {k: torch.from_numpy(v[None]).to(dev) for k, v in sample["proj_matrices"].items()},
-                torch.from_numpy(sample["depth_values"][None]).to(dev),
+                imgs,
+                {k: torch.from_numpy(v).to(dev) for k, v in raw["proj_matrices"].items()},
+                torch.from_numpy(raw["depth_values"]).to(dev),
             )
             depth, conf = blended_confidence(out)
-        depth, conf = depth[0].cpu().numpy(), conf[0].cpu().numpy()
-        print(f"iter {i + 1}/{len(dataset)} time {time.time() - t0:.3f}s res {depth.shape}")
-        save_outputs(
-            args.outdir,
-            sample["filename"],
-            depth,
-            conf,
-            sample["proj_matrices"]["stage3"][0],
-            sample["imgs"][0],
-        )
+        depth, conf = depth.cpu().numpy(), conf.cpu().numpy()
+        for b, filename in enumerate(raw["filename"]):
+            save_outputs(args.outdir, filename, depth[b], conf[b],
+                         raw["proj_matrices"]["stage3"][b, 0], imgs[b, 0])
+        seconds.append(time.perf_counter() - t0)
+        print(f"iter {i + 1}/{len(loader)} time {seconds[-1]:.3f}s res {depth.shape}")
+        t0 = time.perf_counter()
 
     # Make each scan folder self-contained for fusion: copy pair.txt.
     for scan in scans:
@@ -135,6 +170,7 @@ def main(argv=None):
         if os.path.exists(src) and not os.path.exists(dst):
             os.makedirs(os.path.dirname(dst), exist_ok=True)
             shutil.copyfile(src, dst)
+    return seconds
 
 
 if __name__ == "__main__":
