@@ -1,7 +1,8 @@
 """GPU smoke run of the PyTorch/CUDA port: DTU inference and DTU training,
 in bfloat16, in float32 (the JAX package's default), and in bfloat16 with
 the fused view sum (``fused_view_sum=True``); then the evaluation pipeline
-(read, infer, write, fuse, score) through the CLIs.
+(read, infer, write, fuse, score) and the training side (two processes,
+the training CLI on DTU and BlendedMVS data) through the CLIs.
 
     python3 chip_smoke.py
 
@@ -58,8 +59,24 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this repository's
    11 views, inverse depth) and fuse (thres_view 5). The CPU fuser that
    (c) holds the card against reads the reference image with PIL and
    resizes with cv2, which the card's machine has (printed in phase 2).
-7. The pipeline's times, the kernel line, the card's name and power
-   limit, and last ``{"ok": true, "device": {...}}``.
+7. The training side: (1) the DTU recipe (512x640, 5 views, 48/32/8,
+   Adam) in two processes of batch 1 on the one card (``--ddp-child``;
+   gloo with CUDA tensors, since NCCL refuses two ranks on one device),
+   float32 and bf16, one warm-up and DDP_STEPS timed steps: disjoint
+   shards, parameters bitwise equal across the processes, each process's
+   launches per step as phase 5 counts them, and the parameter updates
+   against one process at batch 2 on the same samples (see
+   DDP_UPDATE_COSINE_MIN); (2) tools/train.py --distributed with NCCL at
+   world size 1 (one card: nothing across cards is measured); (3) a seeded
+   DTU training tree of 1600x1200 Paeth PNGs: every PNG decoded by the
+   compiled unfilter and by numpy with equal bytes, ms per PNG of each,
+   the loader's samples per second, and tools/train.py --dataset dtu's ms
+   per step beside phase 5's model-only step; (4) a seeded 768x576
+   BlendedMVS tree through tools/train.py --dataset blended --loss bld,
+   its samples on the card (nvJPEG) against the CPU's (PIL) within the
+   codec gate.
+8. The pipeline's and the training side's figures, the kernel line, the
+   card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -1687,6 +1704,481 @@ def evaluation_pipeline(dev, paths: dict) -> dict:
     return summary
 
 
+# --- Phase 7: the training side --------------------------------------------
+
+# Two processes on the one card at batch 1 each, against one at batch 2
+# on the same samples: one warm-up step and DDP_STEPS timed ones, Adam, in
+# full float32 arithmetic (TF32 off: its rounding would swamp the float32
+# comparison), so their ms are not phase 5's arithmetic.
+DDP_STEPS = 3
+# The parameter updates (end minus start) of the two runs per group of
+# GRAD_GROUPS, as cosines. The runs differ in the order of the batch
+# statistics' sums (each process's mean, then their mean), in cuDNN's
+# algorithms for batch 1 and 2 and in K4's atomics, and Adam's first steps
+# move each element by about lr * sign(g): elements whose gradient is
+# near zero flip. Witnesses: the one-process run repeated (atomics only)
+# and with its DCN outputs nudged by one step of the activation type
+# (``nudged_dcn_outputs``: rounding); the fault it must catch, in float32:
+# the two processes with BatchNorm on their local batches
+# (``local_batchnorm``). On an NVIDIA H100 80GB HBM3 at 700 W the lowest
+# group (FeatureNet) read, float32: 0.968-0.969 (witnesses: repeated
+# 0.998, nudged 0.987; the fault 0.888); bf16: 0.808 (repeated 0.944,
+# nudged 0.804). bf16's gate sits at its rounding floor, below the float32
+# fault, so only the float32 run tells global from local BatchNorm.
+DDP_UPDATE_COSINE_MIN = {"float32": 0.95, "bfloat16": 0.7}
+TRAIN_SIDE_NVIEWS = 5
+DTU_TRAIN_REFS = 2  # reference viewpoints of the DTU tree; 7 lights each
+BLENDED_HW, BLENDED_VIEWS = (576, 768), 5
+PNG_REPEATS = 3
+
+
+def split_samples(batch: dict) -> list[dict]:
+    """A stacked batch of numpy arrays as its samples."""
+    def pick(v, i):
+        return {k: pick(x, i) for k, x in v.items()} if isinstance(v, dict) else v[i]
+
+    return [pick(batch, i) for i in range(len(batch["imgs"]))]
+
+
+def train_on_samples(dev, dtype_name: str, batch_size: int, shard_id: int, num_shards: int,
+                     perturb=None) -> dict:
+    """The DTU recipe (512x640, 5 views, 48/32/8, Adam) from phase 5's
+    seeded weights on ``example_train_batch`` split into samples, as the
+    training CLI runs it: this process's shard of the samples at
+    ``batch_size``, the model wrapped by ``replicate`` (DDP in a process
+    group). One warm-up step, then DDP_STEPS timed ones with the launches
+    counted; ``perturb(model)``, if given, is a context the steps run in.
+    Returns the shard, the parameters before and after (on the CPU),
+    losses, ms per step and launches."""
+    import time
+
+    from transmvsnet_tpu_torch.config import ModelConfig
+    from transmvsnet_tpu_torch.data.example import example_train_batch
+    from transmvsnet_tpu_torch.data.loader import ShardedLoader
+    from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
+    from transmvsnet_tpu_torch.parallel.sharding import replicate, unwrap
+    from transmvsnet_tpu_torch.train.loop import to_device_batch
+    from transmvsnet_tpu_torch.train.schedule import make_optimizer, warmup_multistep
+    from transmvsnet_tpu_torch.train.step import TrainState, make_train_step
+
+    samples = split_samples(example_train_batch(B=2 * (1 + DDP_STEPS), V=TRAIN_SIDE_NVIEWS, H=TRAIN_H,
+                                                W=TRAIN_W, num_hyp=NUM_HYP))
+    loader = ShardedLoader(samples, batch_size, num_shards=num_shards, shard_id=shard_id, num_workers=0)
+    model = TransMVSNet(ModelConfig(ndepths=NDEPTHS, compute_dtype=dtype_name), device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    state = TrainState(replicate(model),
+                       *make_optimizer(model.parameters(), warmup_multistep(1e-3, [10**6], 0.5)))
+    step = make_train_step()
+    batches = [to_device_batch(b, dev) for b in loader]
+    losses = []
+    with perturb(model) if perturb else contextlib.nullcontext():
+        for i, batch in enumerate(batches):
+            if i == 1:
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+            _, scalars = step(state, batch)
+            losses.append(scalars["loss"].item())
+            if scalars["skipped_nan"].item():
+                raise AssertionError(f"{dtype_name} shard {shard_id}: a step skipped a non-finite loss: {losses}")
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / (len(batches) - 1)
+    return {"indices": loader._shard_indices().tolist(), "losses": losses, "ms_per_step": ms,
+            "launches": read_launches(), "before": before,
+            "after": {n: p.detach().cpu().clone() for n, p in unwrap(state.model).named_parameters()}}
+
+
+@contextlib.contextmanager
+def local_batchnorm(model=None):
+    """BatchNorm on each process's local batch, as if it reduced nothing
+    across processes: the fault DDP_UPDATE_COSINE_MIN must catch."""
+    from transmvsnet_tpu_torch.parallel import distributed
+
+    with patched(distributed, "world_size", lambda _: lambda: 1):
+        yield
+
+
+def ddp_child(argv: list) -> int:
+    """One of phase 7's two processes: ``--ddp-child <rank> <host:port>
+    <out.pt>``. Joins a gloo group of two on the one card (NCCL refuses two
+    ranks on one device) and trains its shard in float32 and in bf16."""
+    from transmvsnet_tpu_torch.parallel import distributed
+
+    rank, coordinator, out = int(argv[0]), argv[1], argv[2]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(coordinator, 2, rank, backend="gloo", device="cuda")
+    try:
+        dev = distributed.process_device("cuda")
+        runs = {d: train_on_samples(dev, d, 1, rank, 2) for d in ("float32", "bfloat16")}
+        runs["float32_local_batchnorm"] = train_on_samples(dev, "float32", 1, rank, 2, perturb=local_batchnorm)
+        torch.save(runs, out)
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def spawn(args: list, what: str, timeout: float) -> None:
+    """Runs each argument list as ``python3 chip_smoke.py ...`` at once;
+    raises unless every process exits 0 within ``timeout`` seconds."""
+    import os
+    import pathlib
+
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    script = str(pathlib.Path(__file__).resolve())
+    procs = [subprocess.Popen([sys.executable, script, *a], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              env=env, text=True) for a in args]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{what}: process {i} exited {p.returncode}:\n{out[-4000:]}")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def step_and_forward(sfx: str) -> dict:
+    """Launches per train step plus one validation forward: an epoch of the
+    training CLI whose validation set is its training set, per step."""
+    train, fwd = STEP_LAUNCHES["train" + sfx], FORWARD_LAUNCHES["inference" + sfx]
+    return {k: train.get(k, 0) + fwd.get(k, 0) for k in {**train, **fwd}}
+
+
+def update_cosines(a: dict, b: dict) -> dict:
+    return group_cosines({n: a["after"][n] - a["before"][n] for n in a["after"]},
+                         {n: b["after"][n] - b["before"][n] for n in b["after"]})
+
+
+def two_processes_on_one_card(dev, work, paths: dict) -> dict:
+    """(1) The DTU recipe in two processes of batch 1 on the one card (gloo
+    with CUDA tensors) against one process at batch 2 on the same samples,
+    float32 and bf16."""
+    torch.cuda.empty_cache()
+    port = free_port()
+    outs = [str(work / f"ddp_{r}.pt") for r in range(2)]
+    spawn([["--ddp-child", str(r), f"localhost:{port}", outs[r]] for r in range(2)], "two processes", 900)
+    ranks = [torch.load(o, weights_only=False) for o in outs]
+    result = {}
+    for dtype_name, sfx in (("float32", "_f32"), ("bfloat16", "")):
+        what = f"two processes ({dtype_name})"
+        r0, r1 = ranks[0][dtype_name], ranks[1][dtype_name]
+        if set(r0["indices"]) & set(r1["indices"]):
+            raise AssertionError(f"{what}: shards overlap: {r0['indices']} {r1['indices']}")
+        equal = all(torch.equal(r0["after"][n], r1["after"][n]) for n in r0["after"])
+        for r in (r0, r1):
+            expect_launches(r["launches"], STEP_LAUNCHES["train" + sfx], DDP_STEPS, what)
+        ref = train_on_samples(dev, dtype_name, 2, 0, 1)
+        repeat = train_on_samples(dev, dtype_name, 2, 0, 1)
+        nudged = train_on_samples(dev, dtype_name, 2, 0, 1, perturb=lambda m: nudged_dcn_outputs(m, seed=2))
+        cos = update_cosines(r0, ref)
+        entry = {
+            "shards": [r0["indices"], r1["indices"]],
+            "ranks_bitwise_equal": equal,
+            "ms_per_step_2x1": [r0["ms_per_step"], r1["ms_per_step"]],
+            "ms_per_step_1x2": ref["ms_per_step"],
+            "phase5_ms_per_step_1x2": paths["train" + sfx]["ms_per_step"],
+            "launches_per_step_per_process": {k: v / DDP_STEPS for k, v in r0["launches"].items() if v},
+            "losses_2x1_mean_of_ranks": [(a + b) / 2 for a, b in zip(r0["losses"], r1["losses"])],
+            "losses_1x2": ref["losses"],
+            "update_cosine_vs_1x2": cos,
+            "update_cosine_witness_1x2_repeated": update_cosines(repeat, ref),
+            "update_cosine_witness_1x2_nudged": update_cosines(nudged, ref),
+            "gate": DDP_UPDATE_COSINE_MIN[dtype_name],
+        }
+        if dtype_name == "float32":
+            fault = ranks[0]["float32_local_batchnorm"]
+            entry["update_cosine_fault_local_batchnorm"] = update_cosines(fault, ref)
+        print(f"training side, {what}: " + json.dumps(entry), flush=True)
+        result[dtype_name] = entry
+    for dtype_name, entry in result.items():  # gated once every figure is printed
+        what, gate = f"two processes ({dtype_name})", DDP_UPDATE_COSINE_MIN[dtype_name]
+        if not entry["ranks_bitwise_equal"]:
+            raise AssertionError(f"{what}: parameters differ across the processes")
+        low = {g: c for g, c in entry["update_cosine_vs_1x2"].items() if not c >= gate}
+        if low:
+            raise AssertionError(f"{what}: update cosine against one process at batch 2 below {gate}: {low}")
+        fault = entry.get("update_cosine_fault_local_batchnorm")
+        if fault and min(fault.values()) >= gate:
+            raise AssertionError(f"{what}: the gate misses BatchNorm on local batches: {fault}")
+    return result
+
+
+def cli_with_nccl(dev, work) -> dict:
+    """(2) tools/train.py --distributed at world size 1: NCCL on the card
+    (there is one card: nothing across cards is measured)."""
+    from transmvsnet_tpu_torch.tools import train
+
+    backends = []
+
+    def record(init):
+        def wrapped(backend, *args, **kwargs):
+            backends.append(backend)
+            return init(backend, *args, **kwargs)
+        return wrapped
+
+    reset_launches()
+    with patched(torch.distributed, "init_process_group", record):
+        with cudnn_default_arithmetic():
+            state = train.main(["--distributed", "--coordinator", f"localhost:{free_port()}", "--num_processes", "1",
+                                "--process_id", "0", "--dataset", "synthetic", "--nviews", "3", "--numdepth", "48",
+                                "--epochs", "1", "--logdir", str(work / "nccl")])
+    launches = read_launches()
+    out = {"backend": backends, "steps": state.step, "launches": {k: v for k, v in launches.items() if v},
+           "checkpoint": (work / "nccl/model_000000.ckpt").exists(),
+           "process_group_left": not torch.distributed.is_initialized()}
+    print("training side, CLI with NCCL: " + json.dumps(out), flush=True)
+    if backends != ["nccl"] or state.step != 2 or not out["checkpoint"] or not out["process_group_left"]:
+        raise AssertionError(f"the CLI with NCCL: {out}")
+    expect_launches(launches, step_and_forward("_f32"), 2, "the CLI with NCCL (per step)")
+    return out
+
+
+def write_dtu_train_tree(root) -> None:
+    """A seeded DTU training tree (``data/datasets.py::DTUTrainDataset``'s
+    layout): one scan of TRAIN_SIDE_NVIEWS viewpoints at 1600x1200, each an
+    RGB PNG of Paeth rows (``paeth_png``) linked for all 7 lights, the
+    first DTU_TRAIN_REFS as references with a PFM depth map and a grey
+    ``depth_visual`` PNG (about half above the mask's 10); the example
+    cameras at 1/4 of the 640x512 crop; depth line "425.0 2.5"."""
+    import os
+
+    from transmvsnet_tpu_torch.data.cams import write_cam_file
+    from transmvsnet_tpu_torch.data.example import example_inputs
+    from transmvsnet_tpu_torch.data.image_io import encode_png
+    from transmvsnet_tpu_torch.data.pfm import save_pfm
+
+    h, w = DTU_SOURCE_HW
+    views = TRAIN_SIDE_NVIEWS
+    rng = np.random.RandomState(11)
+    for sub in ("Cameras/train", "Rectified/scan1_train", "Depths_raw/scan1"):
+        (root / sub).mkdir(parents=True)
+    _, projs, _ = example_inputs(B=1, V=views, H=TRAIN_H, W=TRAIN_W)
+    lines = [str(DTU_TRAIN_REFS)]
+    for v in range(DTU_TRAIN_REFS):
+        others = [o for o in range(views) if o != v]
+        lines += [str(v), f"{len(others)} " + " ".join(f"{o} {100.0 - i}" for i, o in enumerate(others))]
+    (root / "Cameras/pair.txt").write_text("\n".join(lines) + "\n")
+    yy, xx = np.mgrid[0:h, 0:w]
+    for v in range(views):
+        write_cam_file(str(root / f"Cameras/train/{v:0>8}_cam.txt"), projs["stage1"][0, v], depth_line="425.0 2.5")
+        base = np.stack([(xx // 3 + 40 * v) % 256, (yy // 2) % 256, ((xx + yy) // 5) % 256], -1)
+        img = np.clip(base + rng.randint(-12, 13, base.shape), 0, 255).astype(np.uint8)
+        first = root / f"Rectified/scan1_train/rect_{v + 1:0>3}_0_r5000.png"
+        first.write_bytes(paeth_png(img))
+        for light in range(1, 7):
+            os.link(first, root / f"Rectified/scan1_train/rect_{v + 1:0>3}_{light}_r5000.png")
+        if v < DTU_TRAIN_REFS:
+            depth = 500.0 + 300.0 * yy / h + 20.0 * np.sin(xx / 50.0)
+            save_pfm(str(root / f"Depths_raw/scan1/depth_map_{v:0>4}.pfm"), depth.astype(np.float32))
+            visual = ((xx + yy + v) % 21).astype(np.uint8)
+            (root / f"Depths_raw/scan1/depth_visual_{v:0>4}.png").write_bytes(encode_png(visual))
+    (root / "train.txt").write_text("scan1\n")
+
+
+def dtu_training(dev, work, paths: dict) -> dict:
+    """(3) DTU training data through the CLI: every PNG of the tree decoded
+    by the compiled unfilter and by ``_unfilter`` (equal bytes), ms per
+    1600x1200 PNG by each route, the loader's samples per second with its
+    threads, and the CLI's ms per step beside phase 5's model-only step."""
+    import time
+    import zlib
+
+    from transmvsnet_tpu_torch.data import image_io
+    from transmvsnet_tpu_torch.data.datasets import DTUTrainDataset
+    from transmvsnet_tpu_torch.data.loader import ShardedLoader
+    from transmvsnet_tpu_torch.tools import train
+
+    root = work / "dtu_train"
+    t0 = time.perf_counter()
+    write_dtu_train_tree(root)
+    out = {"tree_s": time.perf_counter() - t0}
+    pngs = sorted(root.glob("Rectified/scan1_train/rect_*_0_r5000.png")) + sorted(root.glob("Depths_raw/*/*.png"))
+    views = pngs[:TRAIN_SIDE_NVIEWS]
+    equal = True
+    for p in pngs:
+        data = p.read_bytes()
+        equal &= bool(np.array_equal(image_io.decode_png(data, dev), image_io.decode_png(data, "cpu")))
+    datas = [p.read_bytes() for p in views]
+    t0 = time.perf_counter()
+    for _ in range(PNG_REPEATS):
+        for d in datas:
+            image_io.decode_png(d, dev)
+    out["ms_per_png_1600x1200_compiled"] = (time.perf_counter() - t0) * 1e3 / (PNG_REPEATS * len(datas))
+    t0 = time.perf_counter()
+    for d in datas:
+        image_io.decode_png(d, "cpu")
+    out["ms_per_png_1600x1200_numpy"] = (time.perf_counter() - t0) * 1e3 / len(datas)
+    t0 = time.perf_counter()
+    for d in datas:  # the inflate alone, which both routes share (zlib on the host)
+        zlib.decompress(d[d.index(b"IDAT") + 4: -16])
+    out["ms_per_png_1600x1200_inflate"] = (time.perf_counter() - t0) * 1e3 / len(datas)
+    out["png_routes_equal"] = equal
+    out["pngs_checked"] = len(pngs)
+
+    lst = str(root / "train.txt")
+    dataset = DTUTrainDataset(str(root), lst, nviews=TRAIN_SIDE_NVIEWS, device=dev)
+    loader = ShardedLoader(dataset, TRAIN_B, shuffle=True, drop_last=True)
+    t0 = time.perf_counter()
+    served = sum(len(b["imgs"]) for b in loader)
+    out["loader_samples_per_s"] = served / (time.perf_counter() - t0)
+    out["loader_threads"] = loader.num_workers
+
+    reset_launches()
+    image_io.png_unfilter.launches = 0
+    logdir = work / "dtu_logs"
+    with cudnn_default_arithmetic():
+        state = train.main(["--dataset", "dtu", "--datapath", str(root), "--trainlist", lst, "--testlist", lst,
+                            "--nviews", str(TRAIN_SIDE_NVIEWS), "--batch_size", str(TRAIN_B), "--epochs", "1",
+                            "--summary_freq", "1", "--logdir", str(logdir)])
+    torch.cuda.synchronize()
+    records = [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
+    steps = [r["sec_per_iter"] * 1e3 for r in records if r["mode"] == "train"]
+    samples = len(dataset)
+    out.update({
+        "samples": samples, "steps": state.step, "cli_ms_per_step_after_the_first": steps[1:],
+        "cli_ms_per_step": float(np.mean(steps[1:])),
+        "phase5_model_only_ms_per_step_f32": paths["train_f32"]["ms_per_step"],
+        "png_unfilter_calls": image_io.png_unfilter.launches,
+        "launches": {k: v for k, v in read_launches().items() if v},
+        "losses_finite": all(np.isfinite(r["loss"]) for r in records),
+    })
+    print("training side, DTU through the CLI: " + json.dumps(out), flush=True)
+    # Six PNGs per sample (five views and the mask), each sample read once
+    # by the train epoch and once by the validation epoch.
+    if not (equal and out["losses_finite"] and state.step == samples // TRAIN_B
+            and out["png_unfilter_calls"] == 2 * 6 * samples):
+        raise AssertionError(f"DTU through the CLI: {out}")
+    expect_launches(read_launches(), step_and_forward("_f32"), state.step, "DTU through the CLI (per step)")
+    return out
+
+
+def write_blended_tree(dev, root) -> None:
+    """A seeded BlendedMVS tree (``BlendedTrainDataset``'s layout): one scan
+    of BLENDED_VIEWS views at 768x576, JPEGs written by nvJPEG, "bld" cams
+    (the example cameras at full resolution; depth line min, interval,
+    count, max) and PFM depths partly outside the range."""
+    from transmvsnet_tpu_torch.data.cams import write_cam_file
+    from transmvsnet_tpu_torch.data.example import example_inputs
+    from transmvsnet_tpu_torch.data.image_io import write_jpeg
+    from transmvsnet_tpu_torch.data.pfm import save_pfm
+
+    h, w = BLENDED_HW
+    scan = root / "5b7a3890fc8fcf6781e2593a"
+    for sub in ("blended_images", "cams", "rendered_depth_maps"):
+        (scan / sub).mkdir(parents=True)
+    _, projs, _ = example_inputs(B=1, V=BLENDED_VIEWS, H=h, W=w)
+    rng = np.random.RandomState(12)
+    yy, xx = np.mgrid[0:h, 0:w]
+    lines = [str(BLENDED_VIEWS)]
+    for v in range(BLENDED_VIEWS):
+        others = [o for o in range(BLENDED_VIEWS) if o != v]
+        lines += [str(v), f"{len(others)} " + " ".join(f"{o} {100.0 - i}" for i, o in enumerate(others))]
+        write_cam_file(str(scan / f"cams/{v:0>8}_cam.txt"), projs["stage3"][0, v],
+                       depth_line="425.0 2.637760 192 931.45")
+        base = np.stack([(xx // 2 + 30 * v) % 256, (yy // 3) % 256, ((xx - yy) // 4) % 256], -1)
+        img = np.clip(base + rng.randint(-10, 11, base.shape), 0, 255).astype(np.uint8)
+        write_jpeg(str(scan / f"blended_images/{v:0>8}.jpg"), torch.from_numpy(img).to(dev))
+        depth = 400.0 + 560.0 * yy / h + 10.0 * np.cos(xx / 30.0)
+        save_pfm(str(scan / f"rendered_depth_maps/{v:0>8}.pfm"), depth.astype(np.float32))
+    (scan / "cams/pair.txt").write_text("\n".join(lines) + "\n")
+    (root / "list.txt").write_text(scan.name + "\n")
+
+
+def blended_training(dev, work) -> dict:
+    """(4) BlendedMVS through the CLI (--dataset blended --loss bld, 4
+    views): the samples read on the card (nvJPEG) against the CPU's (PIL)
+    within the codec gate, the other fields equal; a few steps."""
+    import time
+
+    from transmvsnet_tpu_torch.data.datasets import BlendedTrainDataset
+    from transmvsnet_tpu_torch.tools import train
+
+    root = work / "blended"
+    write_blended_tree(dev, root)
+    lst = str(root / "list.txt")
+    card, cpu = (BlendedTrainDataset(str(root), lst, device=d) for d in (dev, "cpu"))
+    worst = {"mean_abs_levels": 0.0, "max_abs_levels": 0}
+    same = True
+    for i in range(len(card)):
+        a, b = card[i], cpu[i]
+        d = np.abs(np.round(a["imgs"] * 255).astype(np.int64) - np.round(b["imgs"] * 255).astype(np.int64))
+        worst = {"mean_abs_levels": max(worst["mean_abs_levels"], float(d.mean())),
+                 "max_abs_levels": max(worst["max_abs_levels"], int(d.max()))}
+        same &= all(np.array_equal(a[k][s], b[k][s]) for k in ("proj_matrices", "depth", "mask")
+                    for s in ("stage1", "stage2", "stage3"))
+        same &= bool(np.array_equal(a["depth_values"], b["depth_values"]) and a["depth_interval"] == b["depth_interval"])
+    reset_launches()
+    logdir = work / "blended_logs"
+    t0 = time.perf_counter()
+    with cudnn_default_arithmetic():
+        state = train.main(["--dataset", "blended", "--loss", "bld", "--datapath", str(root), "--trainlist", lst,
+                            "--testlist", lst, "--nviews", "4", "--batch_size", "1", "--lr", "2e-4", "--epochs", "1",
+                            "--summary_freq", "1", "--logdir", str(logdir)])
+    torch.cuda.synchronize()
+    records = [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
+    steps = [r["sec_per_iter"] * 1e3 for r in records if r["mode"] == "train"]
+    out = {"samples": len(card), "card_vs_cpu_images": worst, "other_fields_equal": same, "steps": state.step,
+           "cli_s": time.perf_counter() - t0, "cli_ms_per_step_after_the_first": steps[1:],
+           "epe": [r["epe"] for r in records if r["mode"] == "train"],
+           "launches": {k: v for k, v in read_launches().items() if v}}
+    print("training side, BlendedMVS through the CLI: " + json.dumps(out), flush=True)
+    finite = all(np.isfinite(r["loss"]) and np.isfinite(r["epe"]) for r in records)
+    if not (same and finite and state.step == len(card)
+            and worst["mean_abs_levels"] <= CODEC_MEAN_MAX and worst["max_abs_levels"] <= CODEC_MAX):
+        raise AssertionError(f"BlendedMVS through the CLI (codec gate mean <= {CODEC_MEAN_MAX}, "
+                             f"max <= {CODEC_MAX} levels): {out}")
+    return out
+
+
+def training_summary(t: dict) -> dict:
+    """Phase 7's figures in one line."""
+    two = t["two_processes"]
+    return {
+        "two_processes_ms_per_step_2x1": {d: e["ms_per_step_2x1"] for d, e in two.items()},
+        "one_process_ms_per_step_1x2": {d: e["ms_per_step_1x2"] for d, e in two.items()},
+        "phase5_ms_per_step_1x2": {d: e["phase5_ms_per_step_1x2"] for d, e in two.items()},
+        "update_cosine_vs_1x2_lowest_group": {d: min(e["update_cosine_vs_1x2"].values()) for d, e in two.items()},
+        "update_cosine_witness_lowest_group": {d: {w: min(e[f"update_cosine_witness_1x2_{w}"].values())
+                                                   for w in ("repeated", "nudged")} for d, e in two.items()},
+        "cli_nccl_backend": t["cli_nccl"]["backend"],
+        **{k: t["dtu"][k] for k in ("ms_per_png_1600x1200_compiled", "ms_per_png_1600x1200_numpy",
+                                    "ms_per_png_1600x1200_inflate", "loader_samples_per_s", "cli_ms_per_step",
+                                    "phase5_model_only_ms_per_step_f32")},
+        "blended_card_vs_cpu_images": t["blended"]["card_vs_cpu_images"],
+        "blended_cli_ms_per_step_after_the_first": t["blended"]["cli_ms_per_step_after_the_first"],
+    }
+
+
+def training_side(dev, paths: dict) -> dict:
+    """Phase 7: two processes on the one card, the CLI with NCCL, DTU and
+    BlendedMVS training data through the CLI, in a scratch tree under
+    build/ (git-ignored)."""
+    import pathlib
+    import shutil
+
+    work = pathlib.Path(__file__).resolve().parent / "build" / "train_side"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out = {"two_processes": two_processes_on_one_card(dev, work, paths), "cli_nccl": cli_with_nccl(dev, work),
+           "dtu": dtu_training(dev, work, paths), "blended": blended_training(dev, work)}
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def machine_report() -> dict:
     """What the card's machine has for images: the Python image packages,
     and the libnvjpeg the codec loaded (its resolved path)."""
@@ -1702,6 +2194,8 @@ def machine_report() -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--ddp-child"]:
+        return ddp_child(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
               file=sys.stderr)
@@ -1744,6 +2238,8 @@ def main() -> int:
         paths["train" + sfx] = train_path(dev, sfx)
     torch.cuda.empty_cache()
     pipeline = evaluation_pipeline(dev, paths)
+    torch.cuda.empty_cache()
+    training = training_side(dev, paths)
     for k in kernels:
         # Counts over each path's timed run (REQUESTS forwards, TRAIN_STEPS
         # steps); "launches" is the kernel's main path's (0 for row 4's
@@ -1751,6 +2247,7 @@ def main() -> int:
         k["launches_by_path"] = {p: r["launches"][k["name"]] for p, r in paths.items()}
         k["launches"] = k["launches_by_path"][k["main_path"]]
     print("evaluation pipeline (" + smi + "): " + json.dumps(pipeline))
+    print("training side (" + smi + "): " + json.dumps(training_summary(training)))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -4,7 +4,9 @@ that are no multiple of a block, every supported channel count, offsets
 and projections that leave the image, zero offsets), each instantiation
 (bf16: K1-K4, K5's row-4 instantiation, the fused view sum K7/K8;
 float32: K5, K6, K3 and K4), and the autograd Functions that pair them
-against autograd of the plain forwards, in both activation types.
+against autograd of the plain forwards, in both activation types; the
+nvJPEG codec, the device fuser, and the compiled PNG unfilter (host code
+built with the kernels) against numpy's, byte for byte.
 
 Needs a CUDA card and nvcc; skips elsewhere. On the GPU machine, which has
 no JAX, run it without the suite's conftest:
@@ -972,3 +974,73 @@ def test_device_fuser_matches_its_cpu_run(dev, tmp_path, mode):
         assert torch.equal(mask.cpu(), cmask) and 0.2 < cmask.float().mean() < 1.0
         torch.testing.assert_close(xyz.cpu(), cxyz, rtol=1e-9, atol=1e-9)
         assert (rgb.cpu().int() - crgb.int()).abs().max() <= 16
+
+
+def filtered_png(img, types) -> bytes:
+    """A PNG of uint8 ``img`` ([H, W] grey, [H, W, 3] RGB or [H, W, 4]
+    RGBA) whose row y uses filter ``types[y]`` (0-4), encoded with numpy
+    and zlib."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    h, w = img.shape[:2]
+    bpp = 1 if img.ndim == 2 else img.shape[2]
+    x = img.reshape(h, w * bpp).astype(np.int16)
+    a, b, c = np.zeros_like(x), np.zeros_like(x), np.zeros_like(x)
+    a[:, bpp:], b[1:], c[1:, bpp:] = x[:, :-bpp], x[:-1], x[:-1, :-bpp]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    preds = np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])
+    rows = ((x - preds[np.asarray(types), np.arange(h)]) & 255).astype(np.uint8)
+    raw = np.concatenate([np.asarray(types, np.uint8)[:, None], rows], axis=1).tobytes()
+
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, {1: 0, 3: 2, 4: 6}[bpp], 0, 0, 0)
+    return b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b"")
+
+
+@pytest.mark.parametrize("types", ["0", "1", "2", "3", "4", "mixed"])
+@pytest.mark.parametrize("w", [1, 7, 1601])
+@pytest.mark.parametrize("channels", [1, 3, 4], ids=["grey", "rgb", "rgba"])
+def test_compiled_png_unfilter_equals_numpy(dev, channels, w, types):
+    """The compiled unfilter (host code from csrc/png_unfilter.cu) against
+    the numpy ``_unfilter``, byte for byte, on noise, which every filter
+    leaves noisy."""
+    import numpy as np
+
+    from transmvsnet_tpu_torch.data import image_io
+
+    rng = np.random.RandomState(channels * 10 + w)
+    h = 11
+    img = rng.randint(0, 256, (h, w) if channels == 1 else (h, w, channels)).astype(np.uint8)
+    row_types = rng.randint(0, 5, h) if types == "mixed" else [int(types)] * h
+    png = filtered_png(img, row_types)
+    before = image_io.png_unfilter.launches
+    got = image_io.decode_png(png, dev)
+    assert image_io.png_unfilter.launches == before + 1
+    np.testing.assert_array_equal(got, image_io.decode_png(png, "cpu"))
+    np.testing.assert_array_equal(got, img)
+
+
+@pytest.mark.parametrize("types", ["4", "mixed"])
+def test_compiled_png_unfilter_at_dtu_size_and_from_threads(dev, types):
+    """A 1600x1200 RGB image (DTU's training images), decoded by eight
+    threads at once, as the data loader's threads decode."""
+    import concurrent.futures
+
+    import numpy as np
+
+    from transmvsnet_tpu_torch.data import image_io
+
+    rng = np.random.RandomState(3)
+    img = rng.randint(0, 256, (1200, 1600, 3)).astype(np.uint8)
+    png = filtered_png(img, rng.randint(0, 5, 1200) if types == "mixed" else [4] * 1200)
+    want = image_io.decode_png(png, "cpu")
+    np.testing.assert_array_equal(want, img)
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        for got in pool.map(lambda _: image_io.decode_png(png, dev), range(8)):
+            np.testing.assert_array_equal(got, want)

@@ -50,6 +50,13 @@ def test_the_walk_covers_the_evaluation_pipeline():
         assert f"transmvsnet_tpu_torch/{rel}" in walked, rel
 
 
+def test_the_walk_covers_the_training_side():
+    walked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for rel in ("parallel/distributed.py", "parallel/sharding.py", "data/registry.py", "utils_vis.py",
+                "tools/train.py", "tools/profile.py"):
+        assert f"transmvsnet_tpu_torch/{rel}" in walked, rel
+
+
 def test_no_top_level_cv2_or_pil():
     """The card's machine has neither; they are imported inside functions."""
     bad = []

@@ -7,6 +7,18 @@ own, so that the test runner can give it a worker beside
 import json
 
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The suite runs six workers at once, and torch's intra-op threads
+    then wait on one another at every op (``tests/test_torch_tnt.py``)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def test_train_cli_one_epoch_on_cpu_and_resume(tmp_path):

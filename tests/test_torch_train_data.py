@@ -1,8 +1,9 @@
 """The port's training data against the JAX package's: the synthetic
-training sample, the "dtu_train" cam convention and ``DTUTrainDataset`` on
-a small fake DTU training tree (Cameras/pair.txt, train cams, Rectified
-PNGs, Depths_raw PFM depth and PNG visibility mask), and the numpy nearest
-resize that stands in for ``cv2.resize(INTER_NEAREST)``."""
+training sample, the cam conventions and ``DTUTrainDataset`` on a small
+fake DTU training tree (Cameras/pair.txt, train cams, Rectified PNGs,
+Depths_raw PFM depth and PNG visibility mask), the numpy nearest resize
+that stands in for ``cv2.resize(INTER_NEAREST)``, and the loader's shards
+of the index space. BlendedMVS is in ``tests/test_torch_blended.py``."""
 
 import cv2
 import numpy as np
@@ -10,6 +11,7 @@ import pytest
 
 from transmvsnet_tpu.data import cams as jcams
 from transmvsnet_tpu.data.datasets import DTUTrainDataset as JaxDTUTrainDataset
+from transmvsnet_tpu.data.loader import ShardedLoader as JaxShardedLoader
 from transmvsnet_tpu.data.pfm import save_pfm
 from transmvsnet_tpu.data.synthetic import SyntheticDataset as JaxSyntheticDataset
 from transmvsnet_tpu_torch.data import cams
@@ -77,9 +79,16 @@ def test_cam_conventions_match_jax(tmp_path):
     np.testing.assert_array_equal(ours.extrinsics, theirs.extrinsics)
     assert (ours.depth_min, ours.depth_interval, ours.depth_max) == (
         theirs.depth_min, theirs.depth_interval, theirs.depth_max)
-    # BlendedMVS's convention is not ported yet.
+    # BlendedMVS's (depth_min, interval, num, depth_max) line: max is the last token.
+    _write_cam(tmp_path / "bld.txt", rng, "2.0 0.0417 192 10.0")
+    ours = cams.read_cam_file(str(tmp_path / "bld.txt"), ndepths=96, convention="bld")
+    theirs = jcams.read_cam_file(str(tmp_path / "bld.txt"), "bld", ndepths=96)
+    np.testing.assert_array_equal(ours.intrinsics, theirs.intrinsics)
+    np.testing.assert_array_equal(ours.extrinsics, theirs.extrinsics)
+    assert (ours.depth_min, ours.depth_interval, ours.depth_max) == (
+        theirs.depth_min, theirs.depth_interval, theirs.depth_max) == (2.0, 8.0 / 96, 10.0)
     with pytest.raises(ValueError, match="convention"):
-        cams.read_cam_file(str(tmp_path / "eval.txt"), convention="bld")
+        cams.read_cam_file(str(tmp_path / "eval.txt"), convention="unknown")
 
 
 @pytest.fixture(scope="module")
@@ -111,7 +120,7 @@ def dtu_train_tree(tmp_path_factory):
 
 def test_dtu_train_dataset_matches_jax(dtu_train_tree):
     kw = dict(datapath=str(dtu_train_tree), listfile=str(dtu_train_tree / "train.txt"), nviews=3)
-    ours, theirs = DTUTrainDataset(**kw), JaxDTUTrainDataset(**kw)
+    ours, theirs = DTUTrainDataset(**kw, device="cpu"), JaxDTUTrainDataset(**kw)
     assert len(ours) == len(theirs) == 3 * 7
     assert ours.metas == theirs.metas
     for idx in (0, 9):  # reference views 0 and 1, lights 0 and 2
@@ -125,3 +134,37 @@ def test_dtu_train_dataset_matches_jax(dtu_train_tree):
     assert batch["imgs"].shape == (2, 3, 512, 640, 3)
     assert batch["depth"]["stage2"].shape == (2, 256, 320)
     assert batch["depth_interval"].shape == (2,)
+
+
+class _Sized:
+    def __init__(self, n):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+
+@pytest.mark.parametrize("shuffle", [False, True], ids=["ordered", "shuffled"])
+@pytest.mark.parametrize("n,num_shards", [(10, 1), (10, 2), (10, 3), (7, 4), (5, 5), (2, 4)])
+def test_shards_match_jax(n, num_shards, shuffle):
+    """Each process's indices and batch count per epoch are the JAX
+    loader's: shuffled from seed + epoch, padded by wrapping, every
+    num_shards-th index. One shard is the whole epoch in order."""
+    for epoch in (0, 3):
+        shards = []
+        for shard_id in range(num_shards):
+            kw = dict(batch_size=2, shuffle=shuffle, num_shards=num_shards, shard_id=shard_id, seed=5, drop_last=True)
+            ours, theirs = ShardedLoader(_Sized(n), **kw), JaxShardedLoader(_Sized(n), **kw)
+            ours.set_epoch(epoch)
+            theirs.set_epoch(epoch)
+            np.testing.assert_array_equal(ours._shard_indices(), theirs._shard_indices())
+            assert len(ours) == len(theirs)
+            shards.append(ours._shard_indices())
+        if num_shards == 1:
+            want = np.arange(n)
+            if shuffle:
+                np.random.RandomState(5 + epoch).shuffle(want)
+            np.testing.assert_array_equal(shards[0], want)
+        if num_shards <= n:
+            assert len({len(s) for s in shards}) == 1
+            assert set(np.concatenate(shards).tolist()) == set(range(n))

@@ -15,6 +15,8 @@ tnt_eval.py:69-83):
 - "minmax" (Tanks and Temples): full-resolution intrinsics (/4 here) and
   (depth_min, depth_max); the interval is (max - min) / ndepths, not
   scaled.
+- "bld" (BlendedMVS, reference datasets/bld_train.py): as "minmax", but
+  depth_max is the line's last token (the line may hold more).
 
 "eval" and "dtu_train" scale the interval by ``interval_scale``.
 """
@@ -49,8 +51,8 @@ def read_cam_file(
     path: str, interval_scale: float = 1.0, ndepths: int = 192, convention: str = "eval"
 ) -> CameraInfo:
     """A cam file, intrinsics at stage-1 resolution, read per ``convention``
-    ("eval", "dtu_train" or "minmax")."""
-    if convention not in ("eval", "dtu_train", "minmax"):
+    ("eval", "dtu_train", "minmax" or "bld")."""
+    if convention not in ("eval", "dtu_train", "minmax", "bld"):
         raise ValueError(f"unknown cam convention {convention!r}")
     with open(path) as f:
         lines = [line.rstrip() for line in f.readlines()]
@@ -62,8 +64,8 @@ def read_cam_file(
     if convention == "dtu_train":
         return CameraInfo(intr, extr, depth_min, depth_interval * interval_scale)
     intr[:2, :] /= 4.0
-    if convention == "minmax":
-        depth_max = float(tokens[1])
+    if convention in ("minmax", "bld"):
+        depth_max = float(tokens[1] if convention == "minmax" else tokens[-1])
         return CameraInfo(intr, extr, depth_min, (depth_max - depth_min) / ndepths, depth_max)
     if len(tokens) >= 3:
         depth_max = depth_min + int(float(tokens[2])) * depth_interval

@@ -1,5 +1,6 @@
-"""DTU training, DTU-test-style and Tanks-and-Temples evaluation datasets
-(reference datasets/dtu_yao.py, general_eval.py, tnt_eval.py).
+"""DTU and BlendedMVS training, DTU-test-style and Tanks-and-Temples
+evaluation datasets (reference datasets/dtu_yao.py, bld_train.py,
+general_eval.py, tnt_eval.py).
 
 All produce the model's sample contract, channel-last numpy:
 
@@ -9,11 +10,13 @@ All produce the model's sample contract, channel-last numpy:
    train only: "depth"/"mask": {"stageN": [h, w]}, "depth_interval": float,
    eval only:  "filename": "scan/{}/NNNNNNNN{}"}
 
-Images go through ``data/image_io.py``. The evaluation datasets take a
-``device`` (CUDA unless the caller says CPU): they decode each JPEG there
-(nvJPEG on the card, PIL on the CPU) and resize it there, and hand back
-numpy. The training data are PNGs, decoded on the host.
-Nearest-neighbour downsampling is numpy (``resize_nearest``).
+Images go through ``data/image_io.py``. Every dataset that reads images
+takes a ``device`` (CUDA unless the caller says CPU). The evaluation
+datasets and BlendedMVS decode each JPEG there (nvJPEG on the card, PIL on
+the CPU), resize it there, and hand back numpy. DTU's training images are
+PNGs, decoded on the host: by the compiled unfilter for a CUDA device, by
+numpy on the CPU. Nearest-neighbour downsampling is numpy
+(``resize_nearest``).
 """
 
 from __future__ import annotations
@@ -31,7 +34,8 @@ from transmvsnet_tpu_torch.data.cams import (
     read_pair_file,
     scale_mvs_input,
 )
-from transmvsnet_tpu_torch.data.image_io import read_image, read_png, resize_bilinear
+from transmvsnet_tpu_torch.data import image_io
+from transmvsnet_tpu_torch.data.image_io import png_rgb, read_image, read_png, resize_bilinear
 from transmvsnet_tpu_torch.data.pfm import read_pfm
 from transmvsnet_tpu_torch.models.blocks import resolve_device
 
@@ -275,6 +279,8 @@ class DTUTrainDataset:
     ``datapath``: Cameras/pair.txt, Cameras/train/NNNNNNNN_cam.txt,
     Rectified/<scan>_train/rect_VVV_L_r5000.png,
     Depths_raw/<scan>/depth_map_VVVV.pfm and depth_visual_VVVV.png.
+    For a CUDA ``device`` the PNGs are unfiltered by the compiled routine
+    (built here, so that a failed build raises before training starts).
     """
 
     def __init__(
@@ -285,9 +291,13 @@ class DTUTrainDataset:
         nviews: int = 5,
         ndepths: int = 192,
         interval_scale: float = 1.06,
+        device: str | torch.device = "cuda",
     ):
         if mode not in ("train", "val", "test"):
             raise ValueError(f"mode must be train, val or test, got {mode!r}")
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            image_io.png_unfilter_library()
         self.datapath = datapath
         self.mode = mode
         self.nviews = nviews
@@ -324,11 +334,14 @@ class DTUTrainDataset:
             )
             cam_path = os.path.join(self.datapath, f"Cameras/train/{vid:0>8}_cam.txt")
             cam = read_cam_file(cam_path, interval_scale=self.interval_scale, convention="dtu_train")
-            imgs.append(self.prepare_img(read_image(img_path, "cpu").numpy()))
+            # Crop first, then scale to [0, 1] as read_image does: the same
+            # float32 values on a quarter of the pixels.
+            img = self.prepare_img(png_rgb(read_png(img_path, self.device)))
+            imgs.append(img.astype(np.float32) / np.float32(255.0))
             pairs.append(cam.proj_pair())
             if i == 0:
                 raw = os.path.join(self.datapath, f"Depths_raw/{scan}")
-                mask_hr = read_png(f"{raw}/depth_visual_{vid:0>4}.png").astype(np.float32)
+                mask_hr = read_png(f"{raw}/depth_visual_{vid:0>4}.png", self.device).astype(np.float32)
                 mask_ms = pyramid(self.prepare_img((mask_hr > 10).astype(np.float32)))
                 depth_ms = pyramid(
                     self.prepare_img(read_pfm(f"{raw}/depth_map_{vid:0>4}.pfm")[0].astype(np.float32))
@@ -345,6 +358,77 @@ class DTUTrainDataset:
             "proj_matrices": stage_proj_matrices(pairs),
             "depth": depth_ms,
             "mask": mask_ms,
+            "depth_values": depth_values,
+            "depth_interval": np.float32(depth_interval),
+        }
+
+
+class BlendedTrainDataset:
+    """BlendedMVS finetuning (reference datasets/bld_train.py), 768x576
+    images. Layout under ``datapath``: <scan>/blended_images/NNNNNNNN.jpg,
+    <scan>/cams/NNNNNNNN_cam.txt (the "bld" convention), <scan>/cams/pair.txt
+    and <scan>/rendered_depth_maps/NNNNNNNN.pfm. The depth range is the
+    cam's line 11 (first and last tokens); the mask keeps depths within
+    [min, min + interval * (ndepths - 1)]. References with fewer than
+    ``nviews - 1`` source views are skipped. JPEGs are decoded on
+    ``device`` (nvJPEG on the card, PIL on the CPU). ``interval_scale`` is
+    taken, as the CLI passes it, and unused, as in the reference."""
+
+    def __init__(
+        self,
+        datapath: str,
+        listfile: str | list[str],
+        mode: str = "train",
+        nviews: int = 4,
+        ndepths: int = 192,
+        interval_scale: float = 1.0,
+        device: str | torch.device = "cuda",
+    ):
+        if mode not in ("train", "val", "test"):
+            raise ValueError(f"mode must be train, val or test, got {mode!r}")
+        self.datapath = datapath
+        self.mode = mode
+        self.nviews = nviews
+        self.ndepths = ndepths
+        self.device = resolve_device(device)
+        scans = read_scan_list(listfile) if isinstance(listfile, str) else list(listfile)
+        self.metas = [
+            (scan, ref_view, src_views)
+            for scan in scans
+            for ref_view, src_views in read_pair_file(os.path.join(datapath, f"{scan}/cams/pair.txt"))
+            if len(src_views) >= self.nviews - 1
+        ]
+
+    def __len__(self) -> int:
+        return len(self.metas)
+
+    def __getitem__(self, idx: int) -> dict[str, Any]:
+        scan, ref_view, src_views = self.metas[idx]
+        view_ids = [ref_view] + src_views[: self.nviews - 1]
+        imgs, pairs = [], []
+        for i, vid in enumerate(view_ids):
+            img_path = os.path.join(self.datapath, f"{scan}/blended_images/{vid:0>8}.jpg")
+            cam_path = os.path.join(self.datapath, f"{scan}/cams/{vid:0>8}_cam.txt")
+            cam = read_cam_file(cam_path, ndepths=self.ndepths, convention="bld")
+            imgs.append(read_image(img_path, self.device))
+            pairs.append(cam.proj_pair())
+            if i == 0:
+                depth = read_pfm(os.path.join(self.datapath, f"{scan}/rendered_depth_maps/{vid:0>8}.pfm"))[0]
+                depth = depth.astype(np.float32)
+                depth_end = cam.depth_interval * (self.ndepths - 1) + cam.depth_min
+                mask = ((depth >= cam.depth_min) & (depth <= depth_end)).astype(np.float32)
+                depth_interval = cam.depth_interval
+                depth_values = np.arange(
+                    cam.depth_min,
+                    cam.depth_interval * self.ndepths + cam.depth_min,
+                    cam.depth_interval,
+                    dtype=np.float32,
+                )
+        return {
+            "imgs": torch.stack(imgs).cpu().numpy(),
+            "proj_matrices": stage_proj_matrices(pairs),
+            "depth": pyramid(depth),
+            "mask": pyramid(mask),
             "depth_values": depth_values,
             "depth_interval": np.float32(depth_interval),
         }

@@ -12,12 +12,15 @@ and the fuser, routed by device.
   conversion differ, so its decode of a file differs from PIL's by under a
   level on average and a few levels at most; the CPU tests compare the CPU
   route and the encoder's front end only.
-- PNG, on every device: decoded and encoded here with numpy and the
-  standard library's ``zlib`` on the host (8-bit grey, RGB and RGBA,
-  non-interlaced; all five row filters), bit for bit what ``cv2.imread``
-  and PIL decode. The Average and Paeth filters make each byte depend on
-  its left neighbour, so rows are unfiltered along anti-diagonals, one
-  numpy step per diagonal (H + W steps).
+- PNG, on every device: decoded and encoded here on the host with the
+  standard library's ``zlib`` (8-bit grey, RGB and RGBA, non-interlaced;
+  all five row filters), bit for bit what ``cv2.imread`` and PIL decode.
+  The rows are unfiltered by ``png_unfilter`` (``csrc/png_unfilter.cu``,
+  host code built with the kernels and called through ctypes, without the
+  interpreter lock) for a CUDA device, and by its plain numpy version
+  ``_unfilter`` on the CPU: the Average and Paeth filters make each byte
+  depend on its left neighbour, so the numpy version walks the
+  anti-diagonals, one numpy step per diagonal (H + W steps).
 - ``resize_bilinear``: ``cv2.resize``'s ``INTER_LINEAR`` on float input:
   ``resize_taps`` in torch on the card, cv2 on the CPU.
 """
@@ -70,9 +73,44 @@ def _unfilter(raw: np.ndarray, ftype: np.ndarray, bpp: int) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8)
 
 
-def decode_png(data: bytes) -> np.ndarray:
+def png_unfilter_library() -> ctypes.CDLL:
+    """The compiled unfilter, built with the kernels at first use."""
+    from transmvsnet_tpu_torch.ops.cuda import build
+
+    lib = build.library("png_unfilter")
+    lib.png_unfilter.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                                 ctypes.c_void_p]
+    lib.png_unfilter.restype = ctypes.c_int
+    return lib
+
+
+def png_unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
+    """``_unfilter`` by the compiled routine: rows [H, 1 + W * bpp] uint8,
+    each row its filter type and its filtered bytes, to [H, W, bpp].
+    ``png_unfilter.launches`` counts the calls."""
+    from transmvsnet_tpu_torch.ops.cuda import build
+
+    if rows.dtype != np.uint8 or rows.ndim != 2 or (rows.shape[1] - 1) % bpp:
+        raise ValueError(f"png_unfilter takes uint8 [H, 1 + W * {bpp}], got {rows.dtype} {rows.shape}")
+    lib = png_unfilter_library()
+    rows = np.ascontiguousarray(rows)
+    height, stride = rows.shape
+    out = np.empty((height, (stride - 1) // bpp, bpp), np.uint8)
+    build.check(lib, "png_unfilter", lib.png_unfilter(rows.ctypes.data, height, stride, bpp, out.ctypes.data))
+    with _count_lock:
+        png_unfilter.launches += 1
+    return out
+
+
+png_unfilter.launches = 0
+
+
+def decode_png(data: bytes, device: str | torch.device = "cpu") -> np.ndarray:
     """An 8-bit grey, RGB or RGBA PNG as uint8 [H, W] or [H, W, C], as
-    ``np.asarray(PIL.Image.open(...))`` gives it."""
+    ``np.asarray(PIL.Image.open(...))`` gives it, on the host: for a CUDA
+    ``device`` unfiltered by ``png_unfilter``, else by ``_unfilter``."""
+    device = torch.device(device)
+    _check_device(device)
     if data[:8] != PNG_SIGNATURE:
         raise ValueError("not a PNG file")
     pos, header, idat = 8, None, []
@@ -101,7 +139,10 @@ def decode_png(data: bytes) -> np.ndarray:
     rows = rows.reshape(height, width * bpp + 1)
     if (rows[:, 0] > 4).any():
         raise ValueError("PNG row filter type above 4")
-    img = _unfilter(rows[:, 1:].reshape(height, width, bpp), rows[:, 0], bpp)
+    if device.type == "cuda":
+        img = png_unfilter(rows, bpp)
+    else:
+        img = _unfilter(rows[:, 1:].reshape(height, width, bpp), rows[:, 0], bpp)
     return img[..., 0] if bpp == 1 else img
 
 
@@ -122,9 +163,16 @@ def encode_png(img: np.ndarray) -> bytes:
     return PNG_SIGNATURE + chunk(b"IHDR", ihdr) + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b"")
 
 
-def read_png(path: str) -> np.ndarray:
+def read_png(path: str, device: str | torch.device = "cpu") -> np.ndarray:
+    """``decode_png`` of a file: uint8 on the host, unfiltered for ``device``."""
     with open(path, "rb") as f:
-        return decode_png(f.read())
+        return decode_png(f.read(), device)
+
+
+def png_rgb(img: np.ndarray) -> np.ndarray:
+    """A decoded PNG as RGB [H, W, 3]: a grey PNG's channel repeated, an
+    RGBA PNG's alpha dropped."""
+    return np.repeat(img[..., None], 3, axis=2) if img.ndim == 2 else img[..., :3]
 
 
 def write_png(path: str, img: np.ndarray) -> None:
@@ -235,9 +283,7 @@ def read_image(path: str, device: str | torch.device = "cuda") -> torch.Tensor:
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] == PNG_SIGNATURE:
-        img = decode_png(data)
-        img = np.repeat(img[..., None], 3, axis=2) if img.ndim == 2 else img[..., :3]
-        u8 = torch.from_numpy(np.ascontiguousarray(img)).to(device)
+        u8 = torch.from_numpy(np.ascontiguousarray(png_rgb(decode_png(data, device)))).to(device)
     elif device.type == "cuda":
         u8 = jpeg_decode(data, device)
     else:

@@ -1,10 +1,13 @@
-"""Batching loader, the DataLoader analog (numpy only), for one process.
+"""Batching loader, the DistributedSampler + DataLoader analog (numpy only).
 
-Each epoch shuffles the sample indices (seeded by ``seed + epoch``) and
-cuts them into batches. Samples are built by worker threads and stacked
-into nested dicts of numpy arrays. Sharding across processes (the
-reference's DistributedSampler, reference train.py:377-384) is not here
-yet: the training CLI runs one process.
+Each epoch shuffles the sample indices (seeded by ``seed + epoch``, the
+same on every process), pads them by wrapping to a multiple of
+``num_shards`` and gives process ``shard_id`` every ``num_shards``-th
+index from its own: disjoint shards of equal length (the reference's
+DistributedSampler, reference train.py:377-384, as the JAX package's
+``ShardedLoader`` has it). One shard is the whole index space in the
+epoch's order. Samples are built by worker threads and stacked into
+nested dicts of numpy arrays.
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ class ShardedLoader:
         dataset,
         batch_size: int,
         shuffle: bool = False,
+        num_shards: int = 1,
+        shard_id: int = 0,
         seed: int = 0,
         drop_last: bool = False,
         num_workers: int = 4,
@@ -44,6 +49,8 @@ class ShardedLoader:
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
+        self.num_shards = num_shards
+        self.shard_id = shard_id
         self.seed = seed
         self.drop_last = drop_last
         self.num_workers = num_workers
@@ -52,15 +59,25 @@ class ShardedLoader:
     def set_epoch(self, epoch: int) -> None:
         self._epoch = epoch
 
-    def __len__(self) -> int:
-        if self.drop_last:
-            return len(self.dataset) // self.batch_size
-        return -(-len(self.dataset) // self.batch_size)
-
-    def __iter__(self) -> Iterator[dict[str, Any]]:
-        indices = np.arange(len(self.dataset))
+    def _shard_indices(self) -> np.ndarray:
+        n = len(self.dataset)
+        indices = np.arange(n)
         if self.shuffle:
             np.random.RandomState(self.seed + self._epoch).shuffle(indices)
+        total = -(-n // self.num_shards) * self.num_shards
+        if total > n:
+            indices = np.concatenate([indices, indices[: total - n]])
+        return indices[self.shard_id :: self.num_shards]
+
+    def __len__(self) -> int:
+        """Batches per epoch in this process's shard."""
+        per_shard = -(-len(self.dataset) // self.num_shards)
+        if self.drop_last:
+            return per_shard // self.batch_size
+        return -(-per_shard // self.batch_size)
+
+    def __iter__(self) -> Iterator[dict[str, Any]]:
+        indices = self._shard_indices()
         batches = [
             indices[i * self.batch_size : (i + 1) * self.batch_size]
             for i in range(len(self))

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from transmvsnet_tpu_torch.parallel import distributed
+
 
 def resolve_device(device: str | torch.device) -> torch.device:
     """The device an entry point runs on; CUDA unless the caller says CPU."""
@@ -74,6 +76,15 @@ class BatchNorm(nn.Module):
     running variance with the unbiased one, momentum 0.1 (the JAX
     package's ``blocks.BatchNorm``). Buffers carry torch's names, including
     ``num_batches_tracked``, so torch BatchNorm state dicts load as they are.
+
+    In a process group of more than one process, train mode averages the
+    batch mean and E[x^2] over the processes with one differentiable
+    all-reduce per call, and the running variance counts the global batch:
+    every process holds an equal local batch, so this is BatchNorm over the
+    global batch (the JAX package's batch arrays are global; the
+    reference's SyncBatchNorm, reference train.py:363). ``torch.nn.
+    SyncBatchNorm`` is not used: it refuses CPU tensors. With one process
+    the statistics are the local batch's.
     """
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
@@ -91,8 +102,15 @@ class BatchNorm(nn.Module):
         if self.training:
             axes = [0] + list(range(2, x.ndim))
             mean = xf.mean(axes)
-            var = (xf * xf).mean(axes) - mean * mean
+            mean_sq = (xf * xf).mean(axes)
             n = xf.numel() / xf.shape[1]
+            processes = distributed.world_size()
+            if processes > 1:
+                from torch.distributed.nn.functional import all_reduce
+
+                mean, mean_sq = all_reduce(torch.stack([mean, mean_sq])) / processes
+                n *= processes
+            var = mean_sq - mean * mean
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(1 - m).add_(m * mean)

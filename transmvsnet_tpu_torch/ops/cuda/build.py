@@ -7,7 +7,9 @@ source, every header under ``csrc`` (``*.cuh``, which a source may
 include) and the flags, so an edited source or header is rebuilt and an
 unchanged one is reused. ``LINK_FLAGS`` adds libraries per source
 (``image_codec.cu`` links the CUDA toolkit's ``libnvjpeg``); a source
-without any hashes as before.
+without any hashes as before. ``csrc/png_unfilter.cu`` holds host code
+only (the PNG decoder's row unfilter), built the same way. The first call
+builds under a lock: the data loader's threads may ask at once.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
@@ -31,6 +34,7 @@ NVCC_FLAGS = [
 LINK_FLAGS = {"image_codec": ["-lnvjpeg"]}
 
 _libraries: dict[str, ctypes.CDLL] = {}
+_build_lock = threading.Lock()
 build_log: dict[str, str] = {}
 
 
@@ -103,7 +107,9 @@ def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, building the kernels first
     if needed."""
     if name not in _libraries:
-        build_all()
+        with _build_lock:
+            if name not in _libraries:
+                build_all()
     return _libraries[name]
 
 

@@ -39,21 +39,13 @@ from transmvsnet_tpu_torch.data.datasets import GeneralEvalDataset, TnTEvalDatas
 from transmvsnet_tpu_torch.data.image_io import write_jpeg
 from transmvsnet_tpu_torch.data.loader import ShardedLoader
 from transmvsnet_tpu_torch.data.pfm import save_pfm
-from transmvsnet_tpu_torch.data.synthetic import SyntheticDataset
+from transmvsnet_tpu_torch.data.registry import EVALUATION, get_dataset
 from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet, blended_confidence
-
-DATASETS = {
-    "general_eval": GeneralEvalDataset,
-    "dtu_eval": GeneralEvalDataset,
-    "tnt": TnTEvalDataset,
-    "tnt_eval": TnTEvalDataset,
-    "synthetic": SyntheticDataset,
-}
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="TransMVSNet inference (PyTorch/CUDA)")
-    p.add_argument("--dataset", default="general_eval", choices=sorted(DATASETS))
+    p.add_argument("--dataset", default="general_eval", choices=sorted(EVALUATION))
     p.add_argument("--datapath", required=True)
     p.add_argument("--testlist", required=True)
     p.add_argument("--outdir", required=True)
@@ -105,7 +97,7 @@ def save_outputs(outdir, filename_tpl, depth, confidence, cam_pair, img):
 
 
 def build_dataset(args, scans):
-    cls = DATASETS[args.dataset]
+    cls = get_dataset(args.dataset)
     kwargs = dict(
         datapath=args.datapath,
         listfile=scans,

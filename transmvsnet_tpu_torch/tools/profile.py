@@ -3,11 +3,14 @@ torch.profiler.
 
     python -m transmvsnet_tpu_torch.tools.profile [--train] [--logdir ./traces]
         [--nviews 5 --ndepths 48,32,8] [--dtype float32|bfloat16] [--fused]
+        [--height H --width W --batch_size B]
 
 Warm-up passes, then ``--iters`` passes traced with CPU and CUDA activity;
-a pass is one forward at the DTU eval setting (batch 1, 1152x864) or, with
-``--train``, one ``train/step.py`` step with Adam at the DTU recipe (batch
-2, 512x640). Prints one JSON line: wall milliseconds per pass
+a pass is one forward, by default at the DTU eval setting (batch 1,
+1152x864), or, with ``--train``, one ``train/step.py`` step with Adam, by
+default at the DTU recipe (batch 2, 512x640); ``--height``, ``--width``
+and ``--batch_size`` set other shapes (``tools/train.py --mode profile``
+passes its run's batch). Prints one JSON line: wall milliseconds per pass
 (CUDA events), device-busy milliseconds per pass (the union of the traced
 kernels' intervals), the device's idle share, the kernels that take the
 most device time, the port's own kernels' totals (``PORT_KERNELS``: each
@@ -48,6 +51,9 @@ def parse_args(argv=None):
     p.add_argument("--ndepths", default="48,32,8")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--fused", action="store_true", help="fused_view_sum=True (bf16 stages 2-3 via K7/K8)")
+    p.add_argument("--height", type=int, default=0, help="0 = 512 with --train, 864 without")
+    p.add_argument("--width", type=int, default=0, help="0 = 640 with --train, 1152 without")
+    p.add_argument("--batch_size", type=int, default=0, help="0 = 2 with --train, 1 without")
     p.add_argument("--warmup", type=int, default=2)
     p.add_argument("--iters", type=int, default=3)
     p.add_argument("--top", type=int, default=15)
@@ -75,10 +81,16 @@ def port_kernel_totals(by_name: dict, passes: int) -> dict:
     }
 
 
+def pass_shape(args) -> tuple[int, int, int]:
+    """(batch, height, width) of a pass: the flags, else the DTU recipe for
+    training and the DTU eval setting for inference."""
+    default = (2, 512, 640) if args.train else (1, 864, 1152)
+    return tuple(given or d for given, d in zip((args.batch_size, args.height, args.width), default))
+
+
 def main(argv=None):
     args = parse_args(argv)
-    # (batch, height, width): the DTU recipe for training, DTU eval else.
-    batch_size, height, width = (2, 512, 640) if args.train else (1, 864, 1152)
+    batch_size, height, width = pass_shape(args)
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs a CUDA card; torch.cuda.is_available() is false")
     from torch.profiler import ProfilerActivity, profile

@@ -7,6 +7,10 @@ state dict under the reference checkpoint's keys, so
 ``tools/infer.py::load_checkpoint`` and the reference load it as it is.
 ``restore_latest`` resumes from the highest epoch in a directory; the
 weights-only ``--loadckpt`` path is ``tools/infer.py::load_checkpoint``.
+Across processes rank 0 alone writes, then every process waits for it
+(the file is whole before any process reads it); every process restores
+from the same file. A model wrapped for data parallelism is saved and
+loaded as the model itself, under the reference's keys.
 """
 
 from __future__ import annotations
@@ -17,6 +21,8 @@ import re
 
 import torch
 
+from transmvsnet_tpu_torch.parallel import distributed
+from transmvsnet_tpu_torch.parallel.sharding import unwrap
 from transmvsnet_tpu_torch.train.step import TrainState
 
 _NAME = re.compile(r"model_(\d+)\.ckpt$")
@@ -27,18 +33,20 @@ def checkpoint_path(logdir: str, epoch: int) -> str:
 
 
 def save_checkpoint(logdir: str, epoch: int, state: TrainState) -> str:
-    os.makedirs(logdir, exist_ok=True)
     path = checkpoint_path(logdir, epoch)
-    torch.save(
-        {
-            "epoch": epoch,
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "scheduler": state.scheduler.state_dict(),
-            "step": state.step,
-        },
-        path,
-    )
+    if distributed.is_main():
+        os.makedirs(logdir, exist_ok=True)
+        torch.save(
+            {
+                "epoch": epoch,
+                "model": unwrap(state.model).state_dict(),
+                "optimizer": state.optimizer.state_dict(),
+                "scheduler": state.scheduler.state_dict(),
+                "step": state.step,
+            },
+            path,
+        )
+    distributed.barrier()
     return path
 
 
@@ -56,7 +64,7 @@ def restore_latest(logdir: str, state: TrainState) -> int | None:
     if path is None:
         return None
     ckpt = torch.load(path, map_location="cpu", weights_only=False)
-    state.model.load_state_dict(ckpt["model"], strict=True)
+    unwrap(state.model).load_state_dict(ckpt["model"], strict=True)
     state.optimizer.load_state_dict(ckpt["optimizer"])
     state.scheduler.load_state_dict(ckpt["scheduler"])
     state.step = int(ckpt["step"])

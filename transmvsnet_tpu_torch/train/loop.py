@@ -4,7 +4,10 @@ The runtime shape of reference train.py:52-118, as the JAX package's
 ``train/loop.py`` has it: ``run_epoch`` drives a train or eval step over a
 loader, averages the scalars with ``DictMeter`` (the reference's
 DictAverageMeter, utils.py:119-138) and logs every ``log_freq`` steps to
-``MetricsLogger`` (a JSONL file, and TensorBoard where it is installed).
+``MetricsLogger`` (a JSONL file, and TensorBoard where it is installed,
+with the first image's depth, confidence, ground truth and error map).
+Across processes only rank 0's logger writes; the scalars it logs are
+already averaged over the processes (``train/step.py``).
 """
 
 from __future__ import annotations
@@ -16,6 +19,9 @@ from typing import Any, Callable, Iterable
 
 import numpy as np
 import torch
+
+from transmvsnet_tpu_torch.parallel import distributed
+from transmvsnet_tpu_torch.utils_vis import log_depth_images
 
 BATCH_KEYS = ("imgs", "proj_matrices", "depth_values", "depth", "mask", "depth_interval")
 
@@ -39,19 +45,27 @@ class DictMeter:
 
 class MetricsLogger:
     """``<logdir>/metrics.jsonl``, one record per call, plus TensorBoard
-    scalars when ``torch.utils.tensorboard`` can be imported."""
+    scalars and images when ``torch.utils.tensorboard`` can be imported.
+    Writes only on the main process (rank 0); elsewhere every call is a
+    no-op and nothing is created."""
 
     def __init__(self, logdir: str):
+        self.enabled = distributed.is_main()
+        self._tb = None
+        if not self.enabled:
+            return
         os.makedirs(logdir, exist_ok=True)
         self._jsonl = open(os.path.join(logdir, "metrics.jsonl"), "a")
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:
-            self._tb = None
+            pass
         else:
             self._tb = SummaryWriter(logdir)
 
     def log(self, mode: str, scalars: dict[str, float], step: int) -> None:
+        if not self.enabled:
+            return
         rec = {"mode": mode, "step": step, **{k: float(v) for k, v in scalars.items()}}
         self._jsonl.write(json.dumps(rec) + "\n")
         self._jsonl.flush()
@@ -59,7 +73,15 @@ class MetricsLogger:
             for k, v in scalars.items():
                 self._tb.add_scalar(f"{mode}/{k}", float(v), step)
 
+    def log_images(self, mode: str, images: dict[str, torch.Tensor], batch: dict[str, Any], step: int) -> None:
+        """The step's "_depth_est" and "_confidence" (and the batch's
+        ground truth) as TensorBoard images, where TensorBoard is."""
+        if self._tb is not None and images:
+            log_depth_images(self._tb, mode, images["_depth_est"], images["_confidence"], batch, step)
+
     def close(self) -> None:
+        if not self.enabled:
+            return
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
@@ -97,15 +119,17 @@ def run_epoch(
             state, scalars = step_fn(state, batch)
         else:
             scalars = step_fn(state, batch)
-        scalars = {k: v for k, v in scalars.items() if not k.startswith("_")}
+        images = {k: scalars.pop(k) for k in list(scalars) if k.startswith("_")}
         meter.update(scalars)
-        if logger and i % log_freq == 0:
+        if logger and logger.enabled and i % log_freq == 0:
             now = time.time()
+            step = state.step if train else epoch
             logger.log(
                 mode,
                 {**{k: float(v) for k, v in scalars.items()},
                  "sec_per_iter": (now - t_last) / max(i - i_last, 1)},
-                state.step if train else epoch,
+                step,
             )
+            logger.log_images(mode, images, batch, step)
             t_last, i_last = time.time(), i
     return state, meter.mean()

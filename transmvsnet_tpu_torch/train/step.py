@@ -9,6 +9,16 @@ update, so the parameters, the optimizer state and the schedule's count
 stay as they were. BatchNorm updates its running statistics inside the
 forward here, so the step snapshots every buffer before the forward and
 restores them when it skips. The global step advances either way.
+
+Across processes (``state.model`` wrapped by ``parallel/sharding.py::
+replicate``) the guard decides on every process's loss: the finite flags
+are all-reduced (MIN) before the backward, so all processes skip together
+and none waits alone in DDP's gradient all-reduce, as the JAX package's
+guard sees the global batch's loss. The returned scalars are averaged over
+the processes (the JAX package logs global-batch scalars); the "_" image
+tensors stay local. With equal local batches the loss needs no change: it
+is a mean over images, so DDP's mean of the processes' gradients is the
+global batch's gradient.
 """
 
 from __future__ import annotations
@@ -19,6 +29,7 @@ from typing import Any, Callable, Mapping, Sequence
 import torch
 
 from transmvsnet_tpu_torch.models.losses import cascade_loss, masked_mean
+from transmvsnet_tpu_torch.parallel import distributed
 from transmvsnet_tpu_torch.train.metrics import standard_eval_metrics
 
 
@@ -63,6 +74,26 @@ def _scalars(outputs, batch, dlossw, with_bld, wta) -> tuple[torch.Tensor, dict[
     return loss, scalars
 
 
+def _all_finite(loss: torch.Tensor) -> bool:
+    """Whether the loss is finite on every process."""
+    flag = torch.isfinite(loss).to(torch.float32)
+    if distributed.is_initialized():
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MIN)
+    return bool(flag)
+
+
+def _process_mean(scalars: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    """The scalars averaged over the processes in one all-reduce; the "_"
+    image tensors as they are."""
+    processes = distributed.world_size()
+    keys = [k for k in scalars if not k.startswith("_")]
+    if processes == 1 or not keys:
+        return scalars
+    stacked = torch.stack([scalars[k].float() for k in keys])
+    torch.distributed.all_reduce(stacked)
+    return {**scalars, **dict(zip(keys, stacked / processes))}
+
+
 def _forward(model, batch):
     return model(batch["imgs"], batch["proj_matrices"], batch["depth_values"])
 
@@ -81,7 +112,7 @@ def make_train_step(
         loss, scalars = _scalars(outputs, batch, dlossw, with_bld_metrics, wta=True)
         if mark:
             mark("forward")
-        finite = bool(torch.isfinite(loss))
+        finite = _all_finite(loss)
         if finite:
             state.optimizer.zero_grad(set_to_none=True)
             loss.backward()
@@ -97,8 +128,8 @@ def make_train_step(
                     b.copy_(saved)
         state.step += 1
         scalars = {k: v.detach() for k, v in scalars.items()}
-        scalars["skipped_nan"] = torch.tensor(0.0 if finite else 1.0)
-        return state, scalars
+        scalars["skipped_nan"] = torch.tensor(0.0 if finite else 1.0, device=loss.device)
+        return state, _process_mean(scalars)
 
     return train_step
 
@@ -111,6 +142,6 @@ def make_eval_step(
     def eval_step(state: TrainState, batch: Mapping[str, Any]):
         state.model.eval()
         outputs = _forward(state.model, batch)
-        return _scalars(outputs, batch, dlossw, with_bld_metrics, wta=False)[1]
+        return _process_mean(_scalars(outputs, batch, dlossw, with_bld_metrics, wta=False)[1])
 
     return eval_step
