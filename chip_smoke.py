@@ -52,13 +52,18 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this repository's
    1152x864, 5 views, 48/32/8 of 192, float32 and bf16 at batch 1 (each
    PFM against the in-memory forward), float32 at batch 2 against batch 1
    in full float32, launches and nvJPEG calls counted; (c) tools/fuse.main
-   (dynamic, normal) on (b)'s float32 outputs, each view against the CPU
-   fuser, then a true-depth scan at 1152x864 fused on the card, held
-   against the CPU and scored by tools/eval_dtu.main (overall < 0.5); (d)
-   a 12-view scene at 1920x1080 in a TnT tree through infer (--dataset tnt,
-   11 views, inverse depth) and fuse (thres_view 5). The CPU fuser that
-   (c) holds the card against reads the reference image with PIL and
-   resizes with cv2, which the card's machine has (printed in phase 2).
+   (dynamic, normal, native) on (b)'s float32 outputs, dynamic and normal
+   each view against the CPU fuser, native (the kernel csrc/native_fuse.cu,
+   one launch per reference view, counted around the CLI's run) each view
+   against its plain version on the card, bit for bit, the kernel timed
+   alone from a CUDA graph and bounded per view; then
+   a true-depth scan at 1152x864 fused on the card with dynamic (held
+   against the CPU) and native (against the plain version), each scored by
+   tools/eval_dtu.main (overall < 0.5); (d) a 12-view scene at 1920x1080 in
+   a TnT tree through infer (--dataset tnt, 11 views, inverse depth) and
+   fuse (dynamic with thres_view 5, and native). The CPU fuser that (c)
+   holds the card against reads the reference image with PIL and resizes
+   with cv2, which the card's machine has (printed in phase 2).
 7. The training side: (1) the DTU recipe (512x640, 5 views, 48/32/8,
    Adam) in two processes of batch 1 on the one card (``--ddp-child``;
    gloo with CUDA tensors, since NCCL refuses two ranks on one device),
@@ -75,8 +80,9 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this repository's
    BlendedMVS tree through tools/train.py --dataset blended --loss bld,
    its samples on the card (nvJPEG) against the CPU's (PIL) within the
    codec gate.
-8. The pipeline's and the training side's figures, the kernel line, the
-   card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+8. The pipeline's and the training side's figures, the kernel line (phase
+   3's kernels, and the native fuser's from phase 6), the card's name and
+   power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -757,6 +763,7 @@ def kernel_counters() -> dict:
     from transmvsnet_tpu_torch.ops.cuda.dcn import deform_conv2d
     from transmvsnet_tpu_torch.ops.cuda.dcn_bwd import dcn_bwd
     from transmvsnet_tpu_torch.ops.cuda.dcn_fused import dcn_fused
+    from transmvsnet_tpu_torch.ops.cuda.native_fuse import native_fuse
     from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate, warp_correlate_wsum
     from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import (
         warp_correlate_bwd,
@@ -775,6 +782,7 @@ def kernel_counters() -> dict:
         "warp_correlate_bwd_f32": (warp_correlate_bwd, "launches_f32"),
         "warp_correlate_wsum": (warp_correlate_wsum, "launches"),
         "warp_correlate_wsum_bwd": (warp_correlate_wsum_bwd, "launches"),
+        "native_fuse": (native_fuse, "launches"),
     }
 
 
@@ -1231,6 +1239,7 @@ BATCH_CONF_MEAN_TOL = 1e-4
 MASK_AGREE_MIN = 0.9999  # the card's fuser against the CPU's: kept-pixel masks
 POINT_TOL = 1e-4  # ... and points, times the scene's depth range
 SCORE_MAX = 0.5  # tests/test_cli_pipeline.py::test_dtu_fuse_then_evaluate's bound
+NATIVE_DISP, NATIVE_CONSISTENT = 0.25, 3  # tools/fuse.py's --disp_threshold, --num_consistent
 DECODE_REPEATS = 20
 
 
@@ -1491,6 +1500,119 @@ def card_vs_cpu_fusion(scan_dir: str, params, depth_range: float, what: str) -> 
     return r
 
 
+def native_bound(scan, ref: int, srcs: torch.Tensor, count: torch.Tensor) -> dict:
+    """The least time of one reference view's native fusion on this data:
+    the reference depth read once, each source pixel that a tap of a sample
+    touches read once (a valid pixel's sample, in front of the source and
+    inside it; neighbouring pixels' taps overlap, and a source's map stays
+    in L2, so the 16 bytes of four taps per sample would count bytes the
+    function need not move), the count and the point written for every
+    pixel (16 bytes); float32 operations: 36 per valid pixel (its
+    unprojection and mean), 30 per valid pixel and source (the projection),
+    19 per sample inside (the bilinear sample, the disparities) and 36 per
+    agreeing source (its point)."""
+    from transmvsnet_tpu_torch.ops.native_fuse import bilinear_taps, camera, project, unproject
+
+    h, w = scan.hw[ref]
+    offs = scan.offsets.tolist()
+    valid = count.reshape(-1) > 0
+    y, x = torch.meshgrid(torch.arange(h, device=count.device), torch.arange(w, device=count.device),
+                          indexing="ij")
+    X = unproject(camera(scan.cams, ref), x.reshape(-1).float(), y.reshape(-1).float(),
+                  scan.depths[offs[ref] : offs[ref] + h * w])
+    inside = touched = 0
+    for sv in srcs.tolist():
+        u, v, _, front = project(camera(scan.cams, sv), X)
+        sh, sw = scan.hw[sv]
+        hit, taps, _, _ = bilinear_taps(sh, sw, u, v)
+        hit = valid & front & hit
+        inside += int(hit.sum())
+        read = torch.zeros(sh * sw, dtype=torch.bool, device=count.device)
+        for i in taps:
+            read[i[hit]] = True
+        touched += int(read.sum())
+    n_valid = int(valid.sum())
+    agreeing = int((count.reshape(-1)[valid] - 1).sum())
+    nbytes = 4 * h * w + min(16 * inside, 4 * touched) + 16 * h * w
+    flops = 36 * n_valid + 30 * n_valid * len(srcs) + 19 * inside + 36 * agreeing
+    return {"samples_inside": inside, "source_pixels_read": touched, **bound(nbytes, flops, torch.float32)}
+
+
+def native_launch(args):
+    """A closure that launches the native fuser's kernel on ``args`` (as
+    ``native_fuse`` takes them) and nothing else: contiguous inputs, the
+    outputs and the library are made once, as the wrapper makes them."""
+    from transmvsnet_tpu_torch.ops.cuda import build
+    from transmvsnet_tpu_torch.ops.cuda.native_fuse import launch
+
+    depths, offsets, sizes, cams, ref, (h, w), srcs, fbs, lo, hi, thr = args
+    tensors = [t.contiguous() for t in (depths, offsets, sizes, cams, srcs, fbs)]
+    count = torch.empty((h, w), dtype=torch.int32, device=depths.device)
+    xyz = torch.empty((h, w, 3), dtype=torch.float32, device=depths.device)
+    lib = build.library("native_fuse")
+    return lambda: build.check(lib, "native_fuse", launch(lib, *tensors, ref, (h, w), lo, hi, thr, count, xyz,
+                                                           build.stream_handle(depths)))
+
+
+def native_vs_plain(scan_dir: str, depth_range: float, what: str) -> dict:
+    """Every reference view's native-fuser kernel against its plain version,
+    both on the card, on the same loaded scan: counts and points equal bit
+    for bit (both round every operation alike), and the gates of
+    ``card_vs_cpu_fusion`` on the kept-pixel masks (count >=
+    NATIVE_CONSISTENT) and the points of pixels both keep. Per reference
+    view: "ms", the kernel's device time alone, replayed from a CUDA graph
+    (``compare_dcn.kernel_ms``); "call_ms", the wrapper's per call by CUDA
+    events (its host work included); the plain version's; the view's bound.
+    These launches are not the path's: the CLI's run counts them."""
+    from transmvsnet_tpu_torch.fusion import native
+    from transmvsnet_tpu_torch.ops.cuda.native_fuse import native_fuse
+    from transmvsnet_tpu_torch.ops.native_fuse import native_fuse_view_plain
+    from transmvsnet_tpu_torch.tools.compare_dcn import kernel_ms
+
+    scan = native.load_scan(scan_dir, "cuda")
+    views = []
+    for ref, srcs, fbs in scan.entries:
+        args = (scan.depths, scan.offsets, scan.sizes, scan.cams, ref, scan.hw[ref], srcs, fbs, 0.0, 1e9,
+                NATIVE_DISP)
+        count, xyz = native_fuse(*args)
+        want_count, want_xyz = native_fuse_view_plain(*args)
+        keep, want_keep = count >= NATIVE_CONSISTENT, want_count >= NATIVE_CONSISTENT
+        both = keep & want_keep
+        views.append({
+            "ref": ref, "hw": scan.hw[ref], "sources": len(srcs), "kept": int(keep.sum()),
+            "mask_agree": float((keep == want_keep).double().mean()),
+            "max_abs_dpoint": float((xyz - want_xyz)[both].abs().max()) if both.any() else 0.0,
+            "bitwise_equal": torch.equal(count, want_count) and torch.equal(xyz, want_xyz),
+            "ms": kernel_ms(native_launch(args), iters=20, replays=5),
+            "call_ms": cuda_ms(lambda: native_fuse(*args), iters=20),
+            "plain_ms": cuda_ms(lambda: native_fuse_view_plain(*args), iters=3, warmup=1),
+            **native_bound(scan, ref, srcs, count)})
+    r = {"mask_agree_min": min(v["mask_agree"] for v in views),
+         "max_abs_dpoint": max(v["max_abs_dpoint"] for v in views), "point_tol": POINT_TOL * depth_range,
+         "all_bitwise_equal": all(v["bitwise_equal"] for v in views), "views": views}
+    if not (r["all_bitwise_equal"] and r["mask_agree_min"] >= MASK_AGREE_MIN
+            and r["max_abs_dpoint"] <= r["point_tol"]):
+        raise AssertionError(f"{what}: the native fuser's kernel disagrees with its plain version: {r}")
+    return r
+
+
+def native_cli(args: list, views: int, ply: str, what: str) -> dict:
+    """tools/fuse.main --filter_method native, its launches counted: one
+    native_fuse launch per reference view and no other kernel."""
+    from transmvsnet_tpu_torch.fusion.ply import read_ply
+    from transmvsnet_tpu_torch.tools import fuse
+
+    reset_launches()
+    s = timed_cli(fuse.main, [*args, "--filter_method", "native"])
+    launches = read_launches()
+    expect_launches(launches, {"native_fuse": views}, 1, what)
+    xyz, rgb = read_ply(ply)
+    if not (np.isfinite(xyz).all() and rgb is not None):
+        raise AssertionError(f"{what}: non-finite points or no colours")
+    return {"ms_per_scan": 1e3 * s, "ms_per_reference_view": 1e3 * s / views, "points": len(xyz),
+            "launches": launches["native_fuse"]}
+
+
 def timed_cli(fn, args: list) -> float:
     import time
 
@@ -1561,9 +1683,12 @@ def write_true_scan(dev, root) -> tuple:
 
 
 def fusion_and_scoring(dev, work, dtu) -> dict:
-    """(c) tools/fuse.main, dynamic then normal, on (b)'s float32 outputs on
-    the card, held against the CPU fuser; the true-depth scan fused on the
-    card, held against the CPU, and scored by tools/eval_dtu.main."""
+    """(c) tools/fuse.main, dynamic, normal and native, on (b)'s float32
+    outputs on the card, dynamic and normal held against the CPU fuser,
+    native's kernel against its plain version per reference view; the
+    true-depth scan fused on the card with dynamic (held against the CPU)
+    and with native (against the plain version), each scored by
+    tools/eval_dtu.main."""
     import contextlib
     import io
     import time
@@ -1574,40 +1699,53 @@ def fusion_and_scoring(dev, work, dtu) -> dict:
 
     out_root = str(work / "dtu_out_float32_batch1")
     result = {}
-    for method, photo in (("dynamic", 0.3), ("normal", 0.9)):  # the CLI's DTU defaults
+    for method, photo in (("dynamic", 0.3), ("normal", 0.9), ("native", None)):  # the CLI's DTU defaults
         plys = work / f"plys_{method}"
-        s = timed_cli(fuse.main, ["--testpath", out_root, "--testlist", str(work / "dtu.txt"), "--outdir", str(plys),
-                                  "--test_dataset", "dtu", "--filter_method", method])
-        xyz, _ = read_ply(str(plys / "mvsnet001_l3.ply"))
-        r = {"ms_per_scan": 1e3 * s, "ms_per_reference_view": 1e3 * s / DTU_SCENE_VIEWS, "points": len(xyz),
-             "vs_cpu": card_vs_cpu_fusion(f"{out_root}/scan1", FusionParams(photo_threshold=photo, thres_view=3,
-                                                                            mode=method),
-                                          dtu["depth_range"], f"DTU fusion ({method})")}
-        if not np.isfinite(xyz).all():
-            raise AssertionError(f"DTU fusion ({method}): non-finite points")
+        args = ["--testpath", out_root, "--testlist", str(work / "dtu.txt"), "--outdir", str(plys),
+                "--test_dataset", "dtu"]
+        what = f"DTU fusion ({method})"
+        if method == "native":
+            r = native_cli(args, DTU_SCENE_VIEWS, str(plys / "mvsnet001_l3.ply"), what)
+            r["vs_plain"] = native_vs_plain(f"{out_root}/scan1", dtu["depth_range"], what)
+        else:
+            s = timed_cli(fuse.main, [*args, "--filter_method", method])
+            xyz, _ = read_ply(str(plys / "mvsnet001_l3.ply"))
+            r = {"ms_per_scan": 1e3 * s, "ms_per_reference_view": 1e3 * s / DTU_SCENE_VIEWS, "points": len(xyz),
+                 "vs_cpu": card_vs_cpu_fusion(f"{out_root}/scan1",
+                                              FusionParams(photo_threshold=photo, thres_view=3, mode=method),
+                                              dtu["depth_range"], what)}
+            if not np.isfinite(xyz).all():
+                raise AssertionError(f"{what}: non-finite points")
         result[method] = r
         print(f"evaluation pipeline, DTU fusion {method}: " + json.dumps(r), flush=True)
 
     true_root, gt, depth_range = write_true_scan(dev, work)
     (work / "true.txt").write_text("scan1\n")
-    s = timed_cli(fuse.main, ["--testpath", true_root, "--testlist", str(work / "true.txt"), "--outdir",
-                              str(work / "plys_true"), "--test_dataset", "dtu", "--photo_threshold", "0.5",
-                              "--thres_view", "2"])
-    xyz, _ = read_ply(str(work / "plys_true/mvsnet001_l3.ply"))
-    buf = io.StringIO()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
-        eval_dtu.main(["--plydir", str(work / "plys_true"), "--gtpath", gt, "--scans", "1"])
-    score_s = time.perf_counter() - t0
-    score = json.loads(buf.getvalue().strip().splitlines()[-1])
-    r = {"ms_per_scan": 1e3 * s, "ms_per_reference_view": 1e3 * s / TRUE_SCAN_VIEWS, "points": len(xyz),
-         "vs_cpu": card_vs_cpu_fusion(f"{true_root}/scan1", FusionParams(photo_threshold=0.5, thres_view=2),
-                                      depth_range, "true-depth fusion"),
-         "scoring_s": score_s, "score": score}
-    result["true_depth"] = r
-    print("evaluation pipeline, true-depth scan: " + json.dumps(r), flush=True)
-    if not (len(xyz) > 0 and score["overall"] < SCORE_MAX):
-        raise AssertionError(f"true-depth scan: overall {score['overall']} not below {SCORE_MAX} ({len(xyz)} points)")
+    for method in ("dynamic", "native"):
+        plys = work / f"plys_true_{method}"
+        args = ["--testpath", true_root, "--testlist", str(work / "true.txt"), "--outdir", str(plys),
+                "--test_dataset", "dtu"]
+        what = f"true-depth fusion ({method})"
+        if method == "native":
+            r = native_cli(args, TRUE_SCAN_VIEWS, str(plys / "mvsnet001_l3.ply"), what)
+            r["vs_plain"] = native_vs_plain(f"{true_root}/scan1", depth_range, what)
+        else:
+            s = timed_cli(fuse.main, [*args, "--photo_threshold", "0.5", "--thres_view", "2"])
+            r = {"ms_per_scan": 1e3 * s, "ms_per_reference_view": 1e3 * s / TRUE_SCAN_VIEWS,
+                 "vs_cpu": card_vs_cpu_fusion(f"{true_root}/scan1", FusionParams(photo_threshold=0.5, thres_view=2),
+                                              depth_range, what)}
+        xyz, _ = read_ply(str(plys / "mvsnet001_l3.ply"))
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            eval_dtu.main(["--plydir", str(plys), "--gtpath", gt, "--scans", "1"])
+        r.update({"points": len(xyz), "scoring_s": time.perf_counter() - t0,
+                  "score": json.loads(buf.getvalue().strip().splitlines()[-1])})
+        key = "true_depth" if method == "dynamic" else "true_depth_native"
+        result[key] = r
+        print(f"evaluation pipeline, true-depth scan ({method}): " + json.dumps(r), flush=True)
+        if not (len(xyz) > 0 and r["score"]["overall"] < SCORE_MAX):
+            raise AssertionError(f"{what}: overall {r['score']['overall']} not below {SCORE_MAX} ({len(xyz)} points)")
     return result
 
 
@@ -1661,15 +1799,43 @@ def tnt_pipeline(dev, work, ckpt) -> dict:
     xyz, rgb = read_ply(str(work / "plys_tnt/Horse.ply"))
     r.update({"outputs_finite": finite, "fusion_ms_per_scan": 1e3 * s,
               "fusion_ms_per_reference_view": 1e3 * s / scene.V, "points": len(xyz)})
+    native = native_cli(["--testpath", str(out), "--testlist", str(work / "tnt.txt"), "--outdir",
+                         str(work / "plys_tnt_native"), "--test_dataset", "tnt"], scene.V,
+                        str(work / "plys_tnt_native/Horse.ply"), "TnT fusion (native)")
+    native["vs_plain"] = native_vs_plain(str(out / "Horse"), hi - lo, "TnT fusion (native)")
+    r["native"] = native
     print("evaluation pipeline, TnT: " + json.dumps(r), flush=True)
-    if not (finite and len(xyz) > 0 and np.isfinite(xyz).all() and rgb is not None):
-        raise AssertionError(f"TnT pipeline: finite outputs {finite}, {len(xyz)} points")
+    if not (finite and len(xyz) > 0 and np.isfinite(xyz).all() and rgb is not None and native["points"] > 0):
+        raise AssertionError(f"TnT pipeline: finite outputs {finite}, {len(xyz)} points, {native['points']} native")
     return r
 
 
-def evaluation_pipeline(dev, paths: dict) -> dict:
+def native_kernel_entry(checks: dict, launches: dict) -> dict:
+    """The kernels line's entry of the native fuser: per reference view (one
+    launch), headed by its main path, the DTU-shape scan's fusion through
+    the CLI: its mean times and its launches there. The other native runs'
+    are in "by_path" and "launches_by_path"."""
+    def mean(views, key):
+        return sum(v[key] for v in views) / len(views)
+
+    keys = ("ms", "call_ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms")
+    by_path = {name: {key: mean(c["views"], key) for key in keys} for name, c in checks.items()}
+    head = by_path["dtu"]
+    return {
+        "name": "native_fuse", "route": "cuda", "source": "transmvsnet_tpu_torch/csrc/native_fuse.cu",
+        "replaces": "native/fuser/fuser.cpp:296", "launches": launches["dtu"],
+        "max_abs_err": max(c["max_abs_dpoint"] for c in checks.values()),
+        "ms": head["ms"], "call_ms": head["call_ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+        "bound_by": "bytes" if head["bytes_ms"] >= head["ops_ms"] else "operations", "library_ms": None,
+        "main_path": "dtu", "per": "reference view", "launches_by_path": launches, "by_path": by_path,
+        "all_bitwise_equal": all(c["all_bitwise_equal"] for c in checks.values()),
+    }
+
+
+def evaluation_pipeline(dev, paths: dict) -> tuple[dict, dict]:
     """Phase 6: read -> infer -> write -> fuse -> score through the port's
-    CLIs on the card, in a scratch tree under build/ (git-ignored)."""
+    CLIs on the card, in a scratch tree under build/ (git-ignored). Returns
+    its summary and the native fuser's kernel entry."""
     import pathlib
     import shutil
 
@@ -1682,6 +1848,7 @@ def evaluation_pipeline(dev, paths: dict) -> dict:
     dtu = dtu_infer(dev, work, ckpt)
     fusion = fusion_and_scoring(dev, work, dtu)
     tnt = tnt_pipeline(dev, work, ckpt)
+    native_runs = {"dtu": fusion["native"], "true_depth": fusion["true_depth_native"], "tnt": tnt["native"]}
     summary = {
         "ms_per_decoded_image": {k: v for k, v in codec.items() if k.startswith("ms_per_decoded")},
         "ms_per_png_decode_640x512_paeth": codec["ms_per_png_decode_640x512_paeth"],
@@ -1693,15 +1860,25 @@ def evaluation_pipeline(dev, paths: dict) -> dict:
             "tnt_float32_11_views": tnt["cli_ms_per_depth_map"]},
         "model_only_ms_per_depth_map": {"float32": paths["inference_f32"]["ms_per_depth_map"],
                                         "bfloat16": paths["inference"]["ms_per_depth_map"]},
-        "fusion_ms_per_reference_view": {k: v["ms_per_reference_view"] for k, v in fusion.items()},
+        "fusion_ms_per_reference_view": {**{k: v["ms_per_reference_view"] for k, v in fusion.items()},
+                                         "tnt": tnt["fusion_ms_per_reference_view"],
+                                         "tnt_native": tnt["native"]["ms_per_reference_view"]},
         "fusion_ms_per_scan": {**{k: v["ms_per_scan"] for k, v in fusion.items()},
-                               "tnt": tnt["fusion_ms_per_scan"]},
+                               "tnt": tnt["fusion_ms_per_scan"], "tnt_native": tnt["native"]["ms_per_scan"]},
+        "fusion_points": {**{k: v["points"] for k, v in fusion.items()}, "tnt": tnt["points"],
+                          "tnt_native": tnt["native"]["points"]},
+        "native_fuse_launches_per_scan": {k: v["launches"] for k, v in native_runs.items()},
+        "native_kernel_ms_per_reference_view": {k: float(np.mean([r["ms"] for r in v["vs_plain"]["views"]]))
+                                                for k, v in native_runs.items()},
         "scoring_s": fusion["true_depth"]["scoring_s"],
         "overall": fusion["true_depth"]["score"]["overall"],
+        "overall_native": fusion["true_depth_native"]["score"]["overall"],
         "tnt_peak_memory_bytes": tnt["peak_memory_bytes"],
     }
+    entry = native_kernel_entry({k: v["vs_plain"] for k, v in native_runs.items()},
+                                {k: v["launches"] for k, v in native_runs.items()})
     shutil.rmtree(work, ignore_errors=True)
-    return summary
+    return summary, entry
 
 
 # --- Phase 7: the training side --------------------------------------------
@@ -2237,7 +2414,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths["train" + sfx] = train_path(dev, sfx)
     torch.cuda.empty_cache()
-    pipeline = evaluation_pipeline(dev, paths)
+    pipeline, native_entry = evaluation_pipeline(dev, paths)
     torch.cuda.empty_cache()
     training = training_side(dev, paths)
     for k in kernels:
@@ -2246,6 +2423,9 @@ def main() -> int:
         # bf16 K5, which no path runs).
         k["launches_by_path"] = {p: r["launches"][k["name"]] for p, r in paths.items()}
         k["launches"] = k["launches_by_path"][k["main_path"]]
+    # The native fuser runs on none of those paths: its launches are phase
+    # 6's fusion runs through the CLI.
+    kernels.append(native_entry)
     print("evaluation pipeline (" + smi + "): " + json.dumps(pipeline))
     print("training side (" + smi + "): " + json.dumps(training_summary(training)))
     print(json.dumps({"kernels": kernels}))

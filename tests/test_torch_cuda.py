@@ -5,8 +5,10 @@ and projections that leave the image, zero offsets), each instantiation
 (bf16: K1-K4, K5's row-4 instantiation, the fused view sum K7/K8;
 float32: K5, K6, K3 and K4), and the autograd Functions that pair them
 against autograd of the plain forwards, in both activation types; the
-nvJPEG codec, the device fuser, and the compiled PNG unfilter (host code
-built with the kernels) against numpy's, byte for byte.
+nvJPEG codec, the device fuser, the native fuser's kernel (depth maps of
+unequal sizes, a reference that sees no source), and the compiled PNG
+unfilter (host code built with the kernels) against numpy's, byte for
+byte.
 
 Needs a CUDA card and nvcc; skips elsewhere. On the GPU machine, which has
 no JAX, run it without the suite's conftest:
@@ -974,6 +976,69 @@ def test_device_fuser_matches_its_cpu_run(dev, tmp_path, mode):
         assert torch.equal(mask.cpu(), cmask) and 0.2 < cmask.float().mean() < 1.0
         torch.testing.assert_close(xyz.cpu(), cxyz, rtol=1e-9, atol=1e-9)
         assert (rgb.cpu().int() - crgb.int()).abs().max() <= 16
+
+
+def _write_native_scan(root):
+    """A native-fuser scan of 5 views: the synthetic scene's 4 views at
+    64x96 with 0.4% depth noise and a block of zero depth, view 3 at 48x72
+    (sources of unequal sizes), and view 4, view 0's depths behind a camera
+    turned round: as a reference it sees no source, as a source nothing."""
+    import os
+
+    import numpy as np
+
+    from transmvsnet_tpu_torch.data.cams import write_cam_file
+    from transmvsnet_tpu_torch.data.pfm import save_pfm
+    from transmvsnet_tpu_torch.data.synthetic import SyntheticScene
+
+    big = SyntheticScene(num_views=4, height=64, width=96)
+    small = SyntheticScene(num_views=4, height=48, width=72, focal=90.0)
+    rng = np.random.RandomState(7)
+    for sub in ("depth_est", "cams"):
+        os.makedirs(root / sub)
+    turned = big.extrinsics[0].copy()
+    turned[:3, :3] = np.diag([-1.0, 1.0, -1.0]) @ turned[:3, :3]
+    for v in range(5):
+        scene = small if v == 3 else big
+        depth = scene.render(v % 4)[1]
+        depth = (depth * (1 + 0.004 * rng.randn(*depth.shape))).astype(np.float32)
+        depth[20:30, 10 + 5 * v : 40 + 5 * v] = 0.0
+        save_pfm(str(root / f"depth_est/{v:0>8}.pfm"), depth)
+        pair = np.zeros((2, 4, 4), dtype=np.float32)
+        pair[0] = turned if v == 4 else scene.extrinsics[v]
+        pair[1, :3, :3] = scene.K
+        write_cam_file(str(root / f"cams/{v:0>8}_cam.txt"), pair, "1.0 0.01")
+    entries = [(0, [1, 2, 3, 4]), (1, [0, 2, 3]), (2, [3, 1, 0, 4]), (3, [2, 1, 0]), (4, [0, 1, 2, 3])]
+    with open(root / "pair.txt", "w") as f:
+        f.write(f"{len(entries)}\n")
+        for ref, srcs in entries:
+            f.write(f"{ref}\n{len(srcs)} " + " ".join(f"{o} 10.0" for o in srcs) + "\n")
+
+
+def test_native_fuse_matches_plain(dev, tmp_path):
+    """The native fuser's kernel against its plain version on CPU tensors:
+    every operation is rounded alike in both, so counts and points are
+    equal bit for bit."""
+    from transmvsnet_tpu_torch.fusion import native
+    from transmvsnet_tpu_torch.ops.cuda.native_fuse import native_fuse
+
+    _write_native_scan(tmp_path)
+    on_card, on_cpu = native.load_scan(str(tmp_path), dev), native.load_scan(str(tmp_path), "cpu")
+    assert on_card.hw[3] == (48, 72) and on_card.hw[0] == (64, 96)
+    for (ref, srcs, fbs), (_, csrcs, cfbs) in zip(on_card.entries, on_cpu.entries):
+        before = native_fuse.launches
+        count, xyz = native_fuse(on_card.depths, on_card.offsets, on_card.sizes, on_card.cams, ref,
+                                 on_card.hw[ref], srcs, fbs, 0.0, 1e9, 0.25)
+        torch.cuda.synchronize()
+        assert native_fuse.launches == before + 1
+        want_count, want_xyz = native_fuse(on_cpu.depths, on_cpu.offsets, on_cpu.sizes, on_cpu.cams, ref,
+                                           on_cpu.hw[ref], csrcs, cfbs, 0.0, 1e9, 0.25)
+        assert torch.equal(count.cpu(), want_count) and torch.equal(xyz.cpu(), want_xyz)
+        valid = want_count > 0
+        if ref == 4:  # sees no source
+            assert (want_count[valid] == 1).all()
+        else:
+            assert (want_count >= 3).sum() > 0.3 * valid.sum()
 
 
 def filtered_png(img, types) -> bytes:

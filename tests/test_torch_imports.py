@@ -45,8 +45,9 @@ def test_port_imports_no_jax_package():
 
 def test_the_walk_covers_the_evaluation_pipeline():
     walked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
-    for rel in ("data/image_io.py", "fusion/dynamic.py", "fusion/ply.py", "eval/dtu_eval.py",
-                "tools/fuse.py", "tools/eval_dtu.py"):
+    for rel in ("data/image_io.py", "fusion/dynamic.py", "fusion/native.py", "fusion/ply.py",
+                "ops/native_fuse.py", "ops/cuda/native_fuse.py", "eval/dtu_eval.py", "tools/fuse.py",
+                "tools/eval_dtu.py"):
         assert f"transmvsnet_tpu_torch/{rel}" in walked, rel
 
 
@@ -102,6 +103,22 @@ def test_fuse_cli_defaults_to_cuda(no_cuda, tmp_path):
     with pytest.raises(RuntimeError, match="cuda"):
         fuse.main(["--testpath", str(tmp_path), "--testlist", str(tmp_path / "list.txt"),
                    "--outdir", str(tmp_path / "plys")])
+
+
+def test_native_fuser_defaults_to_cuda(no_cuda, tmp_path):
+    """``native_fuse_scans``, ``native_fuse_scan`` and the CLI's native
+    route raise before they write anything."""
+    from transmvsnet_tpu_torch.fusion.native import native_fuse_scan, native_fuse_scans
+    from transmvsnet_tpu_torch.tools import fuse
+
+    (tmp_path / "list.txt").write_text("scan1\n")
+    for call in (lambda: native_fuse_scans(str(tmp_path), ["scan1"], str(tmp_path / "plys")),
+                 lambda: native_fuse_scan(str(tmp_path / "scan1"), str(tmp_path / "plys" / "a.ply")),
+                 lambda: fuse.main(["--testpath", str(tmp_path), "--testlist", str(tmp_path / "list.txt"),
+                                    "--outdir", str(tmp_path / "plys"), "--filter_method", "native"])):
+        with pytest.raises(RuntimeError, match="cuda"):
+            call()
+    assert not (tmp_path / "plys").exists()
 
 
 def test_image_readers_default_to_cuda(no_cuda, tmp_path):

@@ -76,6 +76,22 @@ class SyntheticScene:
         p_w = o_w[None, None] + depth[..., None] * d_w
         return _texture(p_w[..., 0], p_w[..., 1]), depth.astype(np.float32)
 
+    def surface_points(self, stride: int = 1) -> np.ndarray:
+        """Exact surface samples: every view's true depths unprojected to the
+        world, every ``stride``-th row and column; float32 [N, 3] (the
+        analytic counterpart of DTU's STL ground-truth cloud)."""
+        pts = []
+        for v in range(self.V):
+            E = self.extrinsics[v]
+            R, t = E[:3, :3], E[:3, 3]
+            _, depth = self.render(v)
+            u, vv = np.meshgrid(np.arange(self.W), np.arange(self.H))
+            pix = np.stack([u, vv, np.ones_like(u)], axis=-1).astype(np.float64)
+            d_w = (pix @ np.linalg.inv(self.K).T) @ R  # R^T per row
+            p = (-R.T @ t)[None, None] + depth[..., None] * d_w
+            pts.append(p[::stride, ::stride].reshape(-1, 3))
+        return np.concatenate(pts, axis=0).astype(np.float32)
+
     def depth_range(self) -> tuple[float, float]:
         depths = [self.render(v)[1] for v in range(self.V)]
         lo = min(float(d.min()) for d in depths)
