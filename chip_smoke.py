@@ -32,7 +32,16 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this repository's
    kernels); depth-maps/s, peak memory and one forward's time by part of
    the model; the fused path also times itself and its unfused twin in
    turns (as does the fused training path). The float32 requests are timed in PyTorch's default
-   arithmetic (cuDNN may use TF32) and compared in full float32.
+   arithmetic (cuDNN may use TF32) and compared in full float32. Every
+   path runs the config's default cost regulariser (``dense_cost_reg``);
+   the bf16 and float32 paths also time it in turns with the other form
+   (``CostRegNetDense``, the depth-as-channels 2-D convs, or the 3-D
+   ``CostRegNet``) on the same weights, break each form's forward down by
+   part (cost_reg_stage1-3) and hold the other form's output to the
+   default's (DENSE_AGREE_MIN), beside a planted band fault the gate must
+   reject (``planted_band_fault``); the bf16 path also runs one forward with
+   FeatureNet once per view (``batch_views_jointly=False``: 45 K1
+   launches).
 5. Training paths: ``train/step.py`` at the DTU recipe (512x640, 5 views,
    batch 2, 48/32/8, Adam) from seeded random weights, in bfloat16, in
    float32 and in bfloat16 with the fused view sum; a warm-up step and a
@@ -42,7 +51,13 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this repository's
    maps trained per second, peak memory; then one step's gradients
    against the same step on the plain ops and with the plain backward
    (see GRAD_COSINE_MIN and F32_COSINE_MIN), beside witnesses of the
-   noise and planted kernel faults the gates must catch.
+   noise and planted kernel faults the gates must catch. The bf16 and
+   float32 steps are also timed in turns with the other cost regulariser,
+   whose step gradients are held to the default's
+   (DENSE_GRAD_COSINE_MIN). Then the float32 step with ``remat`` and
+   without on one model: ms per step and peak memory of each and in
+   turns, the recompute's launches exactly, gradients, running statistics
+   and their counts against the step without it (REMAT_COSINE_MIN).
 6. Evaluation pipeline, through the port's CLIs on the card, with seeded
    weights whose probability volumes are peaked (PIPELINE_GAIN): (a) the
    nvJPEG codec against the committed libjpeg decodes
@@ -72,15 +87,18 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this repository's
    launches per step as phase 5 counts them, and the parameter updates
    against one process at batch 2 on the same samples (see
    DDP_UPDATE_COSINE_MIN); (2) tools/train.py --distributed with NCCL at
-   world size 1 (one card: nothing across cards is measured); (3) a seeded
+   world size 1 (one card: nothing across cards is measured), with the
+   CLI's default remat; (3) a seeded
    DTU training tree of 1600x1200 Paeth PNGs: every PNG decoded by the
    compiled unfilter and by numpy with equal bytes, ms per PNG of each,
    the loader's samples per second, and tools/train.py --dataset dtu's ms
-   per step beside phase 5's model-only step; (4) a seeded 768x576
-   BlendedMVS tree through tools/train.py --dataset blended --loss bld,
+   per step beside phase 5's model-only step (``--no_remat``, as phase 5
+   steps); (4) a seeded 768x576 BlendedMVS tree through tools/train.py
+   --dataset blended --loss bld --no_remat,
    its samples on the card (nvJPEG) against the CPU's (PIL) within the
    codec gate.
-8. The pipeline's and the training side's figures, the kernel line (phase
+8. The pipeline's and the training side's figures, the two cost
+   regularisation forms' and the remat step's, the kernel line (phase
    3's kernels, and the native fuser's from phase 6), the card's name and
    power limit, and last ``{"ok": true, "device": {...}}``.
 """
@@ -156,6 +174,33 @@ FUSED_AGREE_MIN = 0.99
 FUSED_PLAIN_AGREE_MIN = 0.97
 
 
+# The cost regulariser's other form (``dense_cost_reg``: the depth-as-
+# channels CostRegNetDense or the 3-D CostRegNet) against the default's on
+# the same weights and inputs, compared in full float32: stage-3 depth
+# within one interval on DENSE_AGREE_MIN of the pixels, and as many
+# stage-3 probability columns within DENSE_PROB_TOL of the column's spread
+# (its largest less its smallest probability: random weights leave the
+# columns nearly flat, so an absolute tolerance cannot tell a fault from
+# rounding). In float32 the two differ in summation order only; in bf16
+# each layer's output rounds to bf16 after other sums. The control is a
+# planted fault, the dense form missing one band tap of one layer
+# (``planted_band_fault``), which the gate must reject. Readings on an
+# NVIDIA H100 80GB HBM3 at 700 W, sound bf16 / float32 / planted fault:
+# depth 99.978% / 99.99999% / 99.81%; columns within 1e-2 of the spread
+# 99.994% (bf16) against 27% planted, within 1e-3 99.9997% (float32)
+# against 16%; the largest stage-3 probability difference 5.2e-6 (bf16)
+# against 8.9e-6 planted.
+DENSE_AGREE_MIN = {"float32": 0.999, "bfloat16": 0.999}
+DENSE_PROB_TOL = {"float32": 1e-3, "bfloat16": 1e-2}
+# The two forms' step gradients from the same state, per GRAD_GROUPS: float32
+# gates every group; bf16, whose forwards differ by rounding, the cosine over
+# all parameters at GRAD_COSINE_MIN, as the kernels against the plain step.
+DENSE_GRAD_COSINE_MIN = 0.9999
+# ``remat`` recomputes the same forward: its step's gradients per group
+# against the step without it, in full float32.
+REMAT_COSINE_MIN = 0.9999
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean milliseconds per call of ``fn`` on the card, by CUDA events."""
     for _ in range(warmup):
@@ -171,26 +216,57 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 
 
 @contextlib.contextmanager
-def view_sum(model, fused: bool):
-    """The model with ``fused_view_sum`` set to ``fused`` inside the block."""
+def configured(model, **changes):
+    """The model with ``changes`` to its ModelConfig inside the block (the
+    fields the forward reads at each call: fused_view_sum, remat,
+    batch_views_jointly)."""
     cfg = model.cfg
-    model.cfg = dataclasses.replace(cfg, fused_view_sum=fused)
+    model.cfg = dataclasses.replace(cfg, **changes)
     try:
         yield
     finally:
         model.cfg = cfg
 
 
-def in_turns(model, fn, iters: int, rounds: int = 2) -> dict:
-    """Milliseconds per call of ``fn`` by CUDA events with the unfused and
-    the fused view sum in turns (unfused, fused, fused, unfused, ...), so
-    that both see the same clocks; each entry lists its rounds."""
-    out = {"unfused": [], "fused": []}
+@contextlib.contextmanager
+def cost_reg_form(model, dense: bool):
+    """The model's cost regularisers as ``CostRegNetDense`` (True) or
+    ``CostRegNet`` inside the block. The two hold the same submodules and
+    no other state, so an instance's class is its form."""
+    from transmvsnet_tpu_torch.models.cost_reg import CostRegNet, CostRegNetDense
+
+    regs = list(model.cost_regularization)
+    classes = [type(m) for m in regs]
+    for m in regs:
+        m.__class__ = CostRegNetDense if dense else CostRegNet
+    try:
+        yield
+    finally:
+        for m, cls in zip(regs, classes):
+            m.__class__ = cls
+
+
+def view_sums(model) -> dict:
+    return {"unfused": lambda: configured(model, fused_view_sum=False),
+            "fused": lambda: configured(model, fused_view_sum=True)}
+
+
+def cost_reg_forms(model) -> dict:
+    return {"3d": lambda: cost_reg_form(model, False), "dense": lambda: cost_reg_form(model, True)}
+
+
+def in_turns(fn, iters: int, variants: dict, rounds: int = 2) -> dict:
+    """Milliseconds per call of ``fn`` by CUDA events under each of two
+    variants (name: context factory) in turns (a, b, b, a, ...), so that
+    both see the same clocks; each entry lists its rounds, and
+    "<b>_over_<a>" is the ratio of their sums."""
+    a, b = variants
+    out = {a: [], b: []}
     for r in range(rounds):
-        for fused in ((False, True) if r % 2 == 0 else (True, False)):
-            with view_sum(model, fused):
-                out["fused" if fused else "unfused"].append(cuda_ms(fn, iters=iters, warmup=1))
-    out["fused_over_unfused"] = sum(out["fused"]) / sum(out["unfused"])
+        for name in ((a, b) if r % 2 == 0 else (b, a)):
+            with variants[name]():
+                out[name].append(cuda_ms(fn, iters=iters, warmup=1))
+    out[f"{b}_over_{a}"] = sum(out[b]) / sum(out[a])
     return out
 
 
@@ -808,12 +884,20 @@ FORWARD_LAUNCHES = {
     "inference": {"dcn_fused": 9, "warp_correlate": 3},
     "inference_f32": {"dcn_f32": 9, "warp_correlate_f32": 3},
     "inference_fused": {"dcn_fused": 9, "warp_correlate": 1, "warp_correlate_wsum": 2},
+    # bf16 with FeatureNet run once per view (batch_views_jointly=False).
+    "inference_per_view": {"dcn_fused": 9 * V, "warp_correlate": 3},
 }
 STEP_LAUNCHES = {
     "train": {"dcn_fused": 9, "warp_correlate": 3, "dcn_bwd": 9, "warp_correlate_bwd": 3},
     "train_f32": {"dcn_f32": 9, "warp_correlate_f32": 3, "dcn_bwd_f32": 9, "warp_correlate_bwd_f32": 3},
     "train_fused": {"dcn_fused": 9, "warp_correlate": 1, "warp_correlate_wsum": 2, "dcn_bwd": 9,
                     "warp_correlate_bwd": 1, "warp_correlate_wsum_bwd": 2},
+    # float32 with remat: the backward's recompute of FeatureNet runs K5
+    # again for each of its 9 DCN layers (the last one's Function saves
+    # its tensors after its kernel ran, where torch.utils.checkpoint's
+    # early stop then ends the recompute). The warp is outside every
+    # rematerialised module, as in the JAX package.
+    "train_f32_remat": {"dcn_f32": 9 + 9, "warp_correlate_f32": 3, "dcn_bwd_f32": 9, "warp_correlate_bwd_f32": 3},
 }
 # (activation dtype, fused view sum) of each path.
 PATH_CONFIGS = {"": ("bfloat16", False), "_f32": ("float32", False), "_fused": ("bfloat16", True)}
@@ -884,6 +968,7 @@ def main_path(dev, sfx: str) -> dict:
     what = f"inference path ({dtype_name}{', fused view sum' if fused else ''})"
     gen = torch.Generator().manual_seed(0)
     cfg = ModelConfig(ndepths=NDEPTHS, compute_dtype=dtype_name, fused_view_sum=fused)
+    what += f", {'dense' if cfg.dense_cost_reg else '3-D'} cost regularisation"
     model = TransMVSNet(cfg, device=dev, generator=gen).eval()
     # The reference zero-initialises the offset convs; random weights and
     # biases (offsets of about a pixel, non-integer) exercise the
@@ -920,7 +1005,15 @@ def main_path(dev, sfx: str) -> dict:
         print(f"{what}: {REQUESTS} requests, launches {launches}", flush=True)
         expect_launches(launches, FORWARD_LAUNCHES["inference" + sfx], REQUESTS, what)
         breakdown = module_breakdown(model, forward)
-        turns = {"ms_per_depth_map_in_turns": in_turns(model, forward, REQUESTS)} if fused else {}
+        turns = {"ms_per_depth_map_in_turns": in_turns(forward, REQUESTS, view_sums(model))} if fused else {}
+        if not fused:
+            # The cost regulariser's two forms in turns, and each one's
+            # forward by part.
+            turns = {"ms_per_depth_map_in_turns_by_cost_reg": in_turns(forward, REQUESTS, cost_reg_forms(model))}
+            turns["ms_by_part_by_cost_reg"] = {}
+            for form, context in cost_reg_forms(model).items():
+                with context():
+                    turns["ms_by_part_by_cost_reg"][form] = module_breakdown(model, forward)
 
     out = forward()  # in full float32 arithmetic, as the plain path below
     for s in ("stage1", "stage2", "stage3"):
@@ -952,8 +1045,12 @@ def main_path(dev, sfx: str) -> dict:
 
     agree, dprob = within_interval(plain), max_dprob(plain)
     vs_unfused = {}
+    if not fused:
+        vs_unfused = {**turns, "other_cost_reg": cost_reg_agreement(model, forward, out, interval, what)}
+    if sfx == "":
+        vs_unfused["per_view_features"] = per_view_forward(model, forward, within_interval, what)
     if fused:
-        with view_sum(model, False):
+        with configured(model, fused_view_sum=False):
             unfused = forward()
         vs_unfused = {"stage3_depth_within_one_interval_of_unfused": within_interval(unfused),
                       "max_abs_dprob_vs_unfused": max_dprob(unfused), **turns}
@@ -978,6 +1075,110 @@ def main_path(dev, sfx: str) -> dict:
         if not agree >= FUSED_PLAIN_AGREE_MIN:
             raise AssertionError(f"{what}: stage-3 depth agrees with the plain ops below "
                                  f"{FUSED_PLAIN_AGREE_MIN}: {agree}")
+    return result
+
+
+def planted_band_fault(model):
+    """Stage 3's dense regulariser with its last "up" layer (conv11, D_in =
+    NDEPTHS[2] // 2 there, and only there) missing the band's edge tap into
+    the last output depth: a wrong edge tap in one layer, the control
+    DENSE_AGREE_MIN's gate must reject."""
+    from transmvsnet_tpu_torch.models import cost_reg
+
+    band, d_in = cost_reg._depth_band, NDEPTHS[2] // 2
+
+    def faulty(D_in, mode, device):
+        S = band(D_in, mode, device)
+        if mode == "up" and D_in == d_in:
+            S = S.clone()
+            S[2, D_in - 1, 2 * D_in - 1] = 0.0
+        return S
+
+    def install(*_):
+        cost_reg._depth_band = faulty
+
+    def restore(*_):
+        cost_reg._depth_band = band
+
+    @contextlib.contextmanager
+    def planted():
+        reg = model.cost_regularization[2]
+        handles = [reg.register_forward_pre_hook(install), reg.register_forward_hook(restore)]
+        try:
+            yield
+        finally:
+            restore()
+            for h in handles:
+                h.remove()
+
+    return planted()
+
+
+def form_agreement(a: dict, b: dict, interval: float, dtype_name: str) -> dict:
+    """Two forwards' stage-3 depth within one interval, their stage-3
+    probability columns within DENSE_PROB_TOL of ``b``'s column spread (and,
+    as readings, within other fractions of it), and each stage's largest
+    probability difference."""
+    dprob = (a["stage3"]["prob_volume"] - b["stage3"]["prob_volume"]).abs().amax(dim=1)
+    ref = b["stage3"]["prob_volume"]
+    spread = ref.amax(dim=1) - ref.amin(dim=1)
+    return {
+        "stage3_depth_within_one_interval": ((a["depth"] - b["depth"]).abs() <= interval).float().mean().item(),
+        "stage3_prob_columns_within_tol": (dprob <= DENSE_PROB_TOL[dtype_name] * spread).float().mean().item(),
+        "stage3_prob_columns_within_of_spread": {f"{t:g}": (dprob <= t * spread).float().mean().item()
+                                                 for t in (1e-3, 1e-2, 1e-1)},
+        "max_abs_dprob": {s: (a[s]["prob_volume"] - b[s]["prob_volume"]).abs().max().item()
+                          for s in ("stage1", "stage2", "stage3")},
+    }
+
+
+def forms_agree(result: dict, dtype_name: str) -> bool:
+    agree_min = DENSE_AGREE_MIN[dtype_name]
+    return (result["stage3_depth_within_one_interval"] >= agree_min
+            and result["stage3_prob_columns_within_tol"] >= agree_min)
+
+
+def cost_reg_agreement(model, forward, out: dict, interval: float, what: str) -> dict:
+    """The forward with the cost regulariser's other form against ``out``
+    (the default form's), same weights and inputs, in full float32
+    arithmetic (see DENSE_AGREE_MIN); then the dense form with a planted
+    band fault against the 3-D form, which the gate must reject."""
+    dtype_name = model.cfg.compute_dtype
+    other = not model.cfg.dense_cost_reg
+    with cost_reg_form(model, other):
+        twin = forward()
+    result = {"form": "dense" if other else "3d", **form_agreement(twin, out, interval, dtype_name),
+              "gate": {"agree_min": DENSE_AGREE_MIN[dtype_name], "prob_tol": DENSE_PROB_TOL[dtype_name]}}
+    with cost_reg_form(model, True), planted_band_fault(model):
+        faulty = forward()
+    result["planted_band_fault"] = form_agreement(faulty, out if other else twin, interval, dtype_name)
+    print(f"{what}, other cost regularisation: " + json.dumps(result), flush=True)
+    if not forms_agree(result, dtype_name):
+        raise AssertionError(f"{what}: the two cost regularisation forms disagree: {result}")
+    if forms_agree(result["planted_band_fault"], dtype_name):
+        raise AssertionError(f"{what}: the forms' gate passed a planted band fault: {result}")
+    return result
+
+
+def per_view_forward(model, forward, within_interval, what: str) -> dict:
+    """One forward with FeatureNet run once per view
+    (``batch_views_jointly=False``): its launches (FORWARD_LAUNCHES
+    "inference_per_view"), its time and its stage-3 depth against the
+    joint forward's (eval mode: the same function, other batch sizes)."""
+    with configured(model, batch_views_jointly=False):
+        forward()
+        torch.cuda.synchronize()
+        reset_launches()
+        per_view = forward()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        ms = cuda_ms(forward, iters=1, warmup=0)
+    result = {"launches": launches, "ms_per_depth_map": ms,
+              "stage3_depth_within_one_interval_of_joint": within_interval(per_view)}
+    print(f"{what}, per-view features: " + json.dumps(result), flush=True)
+    expect_launches(launches, FORWARD_LAUNCHES["inference_per_view"], 1, f"{what}, per-view features")
+    if not all(torch.isfinite(per_view[s]["prob_volume"]).all() for s in ("stage1", "stage2", "stage3")):
+        raise AssertionError(f"{what}, per-view features: non-finite output")
     return result
 
 
@@ -1065,10 +1266,119 @@ def train_path(dev, sfx: str) -> dict:
     # The gradients are compared at the state every path reaches here
     # (after 1 + TRAIN_STEPS steps): the in-turn timing below trains on.
     result["gradients"] = grad_comparison(model, state, run, dtype_name, fused)
-    if fused:
-        with cudnn_default_arithmetic():
-            result["ms_per_step_in_turns"] = in_turns(model, run, TRAIN_STEPS)
-        print(f"{what}: ms per step in turns {json.dumps(result['ms_per_step_in_turns'])}", flush=True)
+    with cudnn_default_arithmetic():
+        result["ms_per_step_in_turns"] = in_turns(run, TRAIN_STEPS, view_sums(model) if fused else cost_reg_forms(model))
+    print(f"{what}: ms per step in turns {json.dumps(result['ms_per_step_in_turns'])}", flush=True)
+    if not fused:
+        result["other_cost_reg_gradients"] = cost_reg_gradients(model, state, run, dtype_name, what)
+    return result
+
+
+def restorer(model, state):
+    """A function that puts the model's weights and buffers, the optimizer's
+    and the schedule's state back as they are now."""
+    model_sd = {k: v.clone() for k, v in model.state_dict().items()}
+    opt_sd = copy.deepcopy(state.optimizer.state_dict())
+    sched_sd = state.scheduler.state_dict()
+
+    def restore():
+        model.load_state_dict(model_sd)
+        state.optimizer.load_state_dict(copy.deepcopy(opt_sd))
+        state.scheduler.load_state_dict(sched_sd)
+
+    return restore
+
+
+def cost_reg_gradients(model, state, run, dtype_name: str, what: str) -> dict:
+    """One step's gradients with the cost regulariser's other form against
+    the default form's, from the same weights, batch, optimizer state and
+    BN buffers, in full float32 arithmetic, per GRAD_GROUPS; beside the
+    default form's step repeated (cuDNN's atomics). See
+    DENSE_GRAD_COSINE_MIN."""
+    restore = restorer(model, state)
+    default = model.cfg.dense_cost_reg
+    grads = {}
+    for name, dense in (("default", default), ("other", not default), ("default_repeat", default)):
+        restore()
+        with cost_reg_form(model, dense):
+            run()
+        grads[name] = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+    result = {"other_form": "3d" if default else "dense",
+              "cosine": group_cosines(grads["other"], grads["default"]),
+              **tensor_errors(grads["other"], grads["default"]),
+              "witness_default_repeated": group_cosines(grads["default_repeat"], grads["default"])}
+    print(f"{what}, other cost regularisation's gradients: " + json.dumps(result), flush=True)
+    if dtype_name == "float32":
+        low = {k: c for k, c in result["cosine"].items() if not c >= DENSE_GRAD_COSINE_MIN}
+        if low:
+            raise AssertionError(f"{what}: the forms' gradient cosine below {DENSE_GRAD_COSINE_MIN}: {low}")
+    elif not result["cosine"]["all"] >= GRAD_COSINE_MIN:
+        raise AssertionError(f"{what}: the forms' gradient cosine below {GRAD_COSINE_MIN}: {result['cosine']}")
+    return result
+
+
+def remat_path(dev) -> dict:
+    """Phase 5's float32 step at the DTU recipe with ``ModelConfig.remat``
+    and without, on one model: ms per step and peak memory of each (after
+    a warm-up, TRAIN_STEPS steps, the CLI's arithmetic) and in turns, the
+    launches per step exactly (STEP_LAUNCHES "train_f32_remat"), then one
+    step of each from the same state in full float32: gradients per group
+    (REMAT_COSINE_MIN), BatchNorm's running statistics and counts."""
+    from transmvsnet_tpu_torch.config import ModelConfig
+    from transmvsnet_tpu_torch.data.example import example_train_batch
+    from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
+    from transmvsnet_tpu_torch.train.loop import to_device_batch
+    from transmvsnet_tpu_torch.train.schedule import make_optimizer, warmup_multistep
+    from transmvsnet_tpu_torch.train.step import TrainState, make_train_step
+
+    what = "remat path (float32)"
+    model = TransMVSNet(ModelConfig(ndepths=NDEPTHS), device=dev, generator=torch.Generator().manual_seed(0))
+    batch = to_device_batch(example_train_batch(B=TRAIN_B, V=V, H=TRAIN_H, W=TRAIN_W, num_hyp=NUM_HYP), dev)
+    state = TrainState(model, *make_optimizer(model.parameters(), warmup_multistep(1e-3, [10**6], 0.5)))
+    train_step = make_train_step()
+
+    def run():
+        _, scalars = train_step(state, batch)
+        if scalars["skipped_nan"].item():
+            raise AssertionError(f"{what}: a step skipped a non-finite loss")
+
+    result = {"ms_per_step": {}, "peak_memory_bytes": {}, "launches": {}}
+    with cudnn_default_arithmetic():
+        for remat in (False, True):
+            key = "remat" if remat else "no_remat"
+            with configured(model, remat=remat):
+                run()  # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                result["ms_per_step"][key] = cuda_ms(run, iters=TRAIN_STEPS, warmup=0)
+                result["launches"][key] = read_launches()
+                result["peak_memory_bytes"][key] = torch.cuda.max_memory_allocated()
+        result["ms_per_step_in_turns"] = in_turns(run, TRAIN_STEPS, {
+            "no_remat": lambda: configured(model, remat=False), "remat": lambda: configured(model, remat=True)})
+    expect_launches(result["launches"]["no_remat"], STEP_LAUNCHES["train_f32"], TRAIN_STEPS, what + " without remat")
+    expect_launches(result["launches"]["remat"], STEP_LAUNCHES["train_f32_remat"], TRAIN_STEPS, what)
+
+    restore = restorer(model, state)
+    grads, buffers = {}, {}
+    for remat in (False, True):
+        restore()
+        with configured(model, remat=remat):
+            run()
+        grads[remat] = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+        buffers[remat] = {n: b.clone() for n, b in model.named_buffers()}
+    stats = [n for n in buffers[False] if not n.endswith("num_batches_tracked")]
+    result["cosine_vs_no_remat"] = group_cosines(grads[True], grads[False])
+    result["running_stats_max_rel_err"] = max(
+        ((buffers[True][n] - buffers[False][n]).abs().max() / buffers[False][n].abs().max().clamp_min(1e-30)).item()
+        for n in stats)
+    result["running_stats_bitwise_equal"] = all(torch.equal(buffers[True][n], buffers[False][n]) for n in stats)
+    result["counts_equal"] = all(torch.equal(buffers[True][n], b) for n, b in buffers[False].items()
+                                 if n.endswith("num_batches_tracked"))
+    print(f"{what}: " + json.dumps(result), flush=True)
+    low = {k: c for k, c in result["cosine_vs_no_remat"].items() if not c >= REMAT_COSINE_MIN}
+    if low or not result["counts_equal"] or not result["running_stats_max_rel_err"] <= 1e-6:
+        raise AssertionError(f"{what}: the remat step differs from the step without it: {result}")
     return result
 
 
@@ -1161,9 +1471,7 @@ def grad_comparison(model, state, run, dtype_name: str, fused: bool) -> dict:
                 patched(vjp, "warp_correlate_wsum_bwd", lambda _: warp_correlate_wsum_bwd_plain):
             yield
 
-    model_sd = {k: v.clone() for k, v in model.state_dict().items()}
-    opt_sd = copy.deepcopy(state.optimizer.state_dict())
-    sched_sd = state.scheduler.state_dict()
+    restore = restorer(model, state)
     runs = {  # name: (plain ops, context, reference)
         "plain": (True, contextlib.nullcontext, None),
         "kernels": (False, contextlib.nullcontext, "plain"),
@@ -1186,9 +1494,7 @@ def grad_comparison(model, state, run, dtype_name: str, fused: bool) -> dict:
     result = {"dtype": dtype_name, "fused_view_sum": fused, "bwd_cosine_min": bwd_min,
               **({"group_cosine_min": F32_COSINE_MIN} if f32 else {"cosine_min": GRAD_COSINE_MIN})}
     for name, (plain, context, ref) in runs.items():
-        model.load_state_dict(model_sd)
-        state.optimizer.load_state_dict(copy.deepcopy(opt_sd))
-        state.scheduler.load_state_dict(sched_sd)
+        restore()
         model.use_plain_ops(plain)
         with context():
             run()
@@ -2028,10 +2334,10 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def step_and_forward(sfx: str) -> dict:
+def step_and_forward(sfx: str, remat: bool = False) -> dict:
     """Launches per train step plus one validation forward: an epoch of the
     training CLI whose validation set is its training set, per step."""
-    train, fwd = STEP_LAUNCHES["train" + sfx], FORWARD_LAUNCHES["inference" + sfx]
+    train, fwd = STEP_LAUNCHES["train" + sfx + ("_remat" if remat else "")], FORWARD_LAUNCHES["inference" + sfx]
     return {k: train.get(k, 0) + fwd.get(k, 0) for k in {**train, **fwd}}
 
 
@@ -2096,7 +2402,8 @@ def two_processes_on_one_card(dev, work, paths: dict) -> dict:
 
 def cli_with_nccl(dev, work) -> dict:
     """(2) tools/train.py --distributed at world size 1: NCCL on the card
-    (there is one card: nothing across cards is measured)."""
+    (there is one card: nothing across cards is measured), with the CLI's
+    default remat (the recompute's launches counted)."""
     from transmvsnet_tpu_torch.tools import train
 
     backends = []
@@ -2120,7 +2427,7 @@ def cli_with_nccl(dev, work) -> dict:
     print("training side, CLI with NCCL: " + json.dumps(out), flush=True)
     if backends != ["nccl"] or state.step != 2 or not out["checkpoint"] or not out["process_group_left"]:
         raise AssertionError(f"the CLI with NCCL: {out}")
-    expect_launches(launches, step_and_forward("_f32"), 2, "the CLI with NCCL (per step)")
+    expect_launches(launches, step_and_forward("_f32", remat=True), 2, "the CLI with NCCL (per step)")
     return out
 
 
@@ -2220,7 +2527,7 @@ def dtu_training(dev, work, paths: dict) -> dict:
     with cudnn_default_arithmetic():
         state = train.main(["--dataset", "dtu", "--datapath", str(root), "--trainlist", lst, "--testlist", lst,
                             "--nviews", str(TRAIN_SIDE_NVIEWS), "--batch_size", str(TRAIN_B), "--epochs", "1",
-                            "--summary_freq", "1", "--logdir", str(logdir)])
+                            "--summary_freq", "1", "--no_remat", "--logdir", str(logdir)])
     torch.cuda.synchronize()
     records = [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
     steps = [r["sec_per_iter"] * 1e3 for r in records if r["mode"] == "train"]
@@ -2304,7 +2611,7 @@ def blended_training(dev, work) -> dict:
     with cudnn_default_arithmetic():
         state = train.main(["--dataset", "blended", "--loss", "bld", "--datapath", str(root), "--trainlist", lst,
                             "--testlist", lst, "--nviews", "4", "--batch_size", "1", "--lr", "2e-4", "--epochs", "1",
-                            "--summary_freq", "1", "--logdir", str(logdir)])
+                            "--summary_freq", "1", "--no_remat", "--logdir", str(logdir)])
     torch.cuda.synchronize()
     records = [json.loads(line) for line in (logdir / "metrics.jsonl").read_text().splitlines()]
     steps = [r["sec_per_iter"] * 1e3 for r in records if r["mode"] == "train"]
@@ -2338,6 +2645,34 @@ def training_summary(t: dict) -> dict:
         "blended_card_vs_cpu_images": t["blended"]["card_vs_cpu_images"],
         "blended_cli_ms_per_step_after_the_first": t["blended"]["cli_ms_per_step_after_the_first"],
     }
+
+
+def switches_summary(paths: dict, remat: dict) -> dict:
+    """Phases 4-5's two cost regularisation forms and the remat step in
+    one line: ms per depth map and per step of each form in turns, each
+    form's cost_reg ms per stage, their agreement; the remat step's ms and
+    peak memory beside the step without it."""
+    from transmvsnet_tpu_torch.config import ModelConfig
+
+    out = {"default_cost_reg": "dense" if ModelConfig().dense_cost_reg else "3d"}
+    for sfx in ("", "_f32"):
+        inf, step = paths["inference" + sfx], paths["train" + sfx]
+        out["inference" + sfx] = {
+            "ms_per_depth_map_in_turns": inf["ms_per_depth_map_in_turns_by_cost_reg"],
+            "cost_reg_ms_by_stage": {form: {k: v for k, v in parts.items() if k.startswith("cost_reg")}
+                                     for form, parts in inf["ms_by_part_by_cost_reg"].items()},
+            "other_form_stage3_depth_within_one_interval": inf["other_cost_reg"]["stage3_depth_within_one_interval"],
+            "other_form_max_abs_dprob_stage3": inf["other_cost_reg"]["max_abs_dprob"]["stage3"],
+            "planted_band_fault": {k: inf["other_cost_reg"]["planted_band_fault"][k]
+                                   for k in ("stage3_depth_within_one_interval", "stage3_prob_columns_within_tol")},
+        }
+        out["train" + sfx] = {
+            "ms_per_step_in_turns": step["ms_per_step_in_turns"],
+            "other_form_gradient_cosine_lowest_group": min(step["other_cost_reg_gradients"]["cosine"].values()),
+        }
+    out["per_view_features"] = paths["inference"]["per_view_features"]
+    out["remat_f32"] = {k: remat[k] for k in ("ms_per_step", "peak_memory_bytes", "ms_per_step_in_turns")}
+    return out
 
 
 def training_side(dev, paths: dict) -> dict:
@@ -2414,6 +2749,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         paths["train" + sfx] = train_path(dev, sfx)
     torch.cuda.empty_cache()
+    remat = remat_path(dev)
+    torch.cuda.empty_cache()
     pipeline, native_entry = evaluation_pipeline(dev, paths)
     torch.cuda.empty_cache()
     training = training_side(dev, paths)
@@ -2428,6 +2765,7 @@ def main() -> int:
     kernels.append(native_entry)
     print("evaluation pipeline (" + smi + "): " + json.dumps(pipeline))
     print("training side (" + smi + "): " + json.dumps(training_summary(training)))
+    print("cost regularisation and remat (" + smi + "): " + json.dumps(switches_summary(paths, remat)))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1109,3 +1109,150 @@ def test_compiled_png_unfilter_at_dtu_size_and_from_threads(dev, types):
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         for got in pool.map(lambda _: image_io.decode_png(png, dev), range(8)):
             np.testing.assert_array_equal(got, want)
+
+
+COST_REG_STAGE_SHAPES = [(2, 48, 128, 160), (2, 32, 256, 320), (2, 8, 512, 640)]
+
+
+def _cost_reg_errors(dev, dtype, B, D, h, w):
+    """CostRegNet and CostRegNetDense on the same weights and input in train
+    mode, each output and weight gradient's error (norm relative to the
+    float64 3-D form's) by form, and the float32 dense backward's cuDNN
+    weight-gradient kernels by name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from transmvsnet_tpu_torch.models.blocks import init_parameters
+    from transmvsnet_tpu_torch.models.cost_reg import CostRegNet, CostRegNetDense
+
+    gen = torch.Generator().manual_seed(D)
+    conv3d = CostRegNet(1, 8)
+    init_parameters(conv3d, gen)
+    x = torch.randn(B, 1, D, h, w, generator=gen).to(dev)
+    r = torch.randn(B, 1, D, h, w, generator=gen).to(dev, torch.float64)
+
+    def run(cls, dt):
+        m = cls(1, 8)
+        m.load_state_dict(conv3d.state_dict())
+        m.to(dev, torch.float64 if dt == torch.float64 else torch.float32).train()
+        y = m(x.to(dt))
+        (y.double() * r).sum().backward()
+        return {"output": y.detach(), **{n: p.grad for n, p in m.named_parameters()}}
+
+    ref = run(CostRegNet, torch.float64)
+    errs = {form: {n: _rel_err(t.double(), ref[n]) for n, t in run(cls, dtype).items()}
+            for form, cls in (("3d", CostRegNet), ("dense", CostRegNetDense))}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run(CostRegNetDense, dtype)
+        torch.cuda.synchronize()
+    wgrad = sorted({e.name.split("<")[0].split("(")[0] for e in prof.events()
+                    if any(k in e.name for k in ("wgrad", "Wgrad", "fft"))})
+    return errs, wgrad
+
+
+def _rel_err(got, want):
+    return ((got - want).norm() / want.norm()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,D,h,w", COST_REG_STAGE_SHAPES)
+def test_dense_cost_reg_matches_3d(dev, dtype, B, D, h, w):
+    """CostRegNetDense against CostRegNet on the same weights and input at
+    the DTU recipe's three stage shapes, train mode, each held to the 3-D
+    form in float64 (float32 in full float32, TF32 off): the dense form's
+    worst error over its output and every weight gradient at most twice
+    the 3-D form's worst, and each one at most five times the 3-D form's
+    in the same dtype, plus a floor of the dtype's rounding for tensors
+    both forms get right. A train-mode BatchNorm after each conv makes its
+    weight's gradient a difference of near-equal sums, so neither form's
+    float32 gradients sit nearer float64 than ~1e-3 of their norm, though
+    each conv's own gradient, from exact inputs, is within ~1e-6. Per
+    parameter, cuDNN's 2-D weight-gradient algorithms put the dense form
+    up to ~4x the 3-D form's error at a few parameters (the next test);
+    a wrong depth band is off by O(1)."""
+    errs, _ = _cost_reg_errors(dev, dtype, B, D, h, w)
+    floor = 1e-6 if dtype == torch.float32 else 1e-2
+    worst = {form: max(e.values()) for form, e in errs.items()}
+    assert worst["dense"] <= 2 * worst["3d"] + floor, worst
+    worse = {n: (e, errs["3d"][n]) for n, e in errs["dense"].items() if e > 5 * errs["3d"][n] + floor}
+    assert not worse, worse
+
+
+@pytest.mark.parametrize("B,D,h,w", COST_REG_STAGE_SHAPES)
+def test_dense_cost_reg_f32_gradient_error_is_cudnns(dev, B, D, h, w, capsys):
+    """Where the float32 dense form's weight gradients sit further from
+    float64 than the 3-D form's, cuDNN's algorithms for its 2-D weight
+    gradients (Winograd, FFT, ALGO_0 by their kernels' names) put them
+    there. Without cuDNN (PyTorch's own convs: im2col and GEMM) the two
+    forms' errors per parameter are within 3 times each other's (1.05x,
+    2.09x and 1.73x read at the three shapes: the BatchNorm cancellation
+    moves single parameters either way), where with cuDNN ``prob``'s weight
+    gradient reached 4.25x at the stage-3 shape (3.2e-5 against 6.6e-6;
+    without cuDNN 1.2e-6 against 0.9e-6; 1.45x and 1.86x at the other
+    shapes), and the dense form's worst over all parameters stayed near
+    or below the 3-D form's (on an NVIDIA H100 80GB HBM3 at 700 W). The
+    readings and the dense backward's cuDNN weight-gradient kernels are
+    printed."""
+    readings = {}
+    for name, flags in (("cudnn", dict(enabled=True)), ("no_cudnn", dict(enabled=False))):
+        with torch.backends.cudnn.flags(**flags, allow_tf32=False):
+            errs, wgrad = _cost_reg_errors(dev, torch.float32, B, D, h, w)
+        ratio = {n: e / (errs["3d"][n] + 1e-6) for n, e in errs["dense"].items()}
+        top = max(ratio, key=ratio.get)
+        readings[name] = {"largest_ratio": (top, ratio[top], errs["dense"][top], errs["3d"][top]),
+                          "prob_weight": (errs["dense"]["prob.weight"], errs["3d"]["prob.weight"]),
+                          "worst": {form: max(e.values()) for form, e in errs.items()},
+                          "dense_wgrad_kernels": wgrad}
+    with capsys.disabled():
+        print(f"\ndense cost_reg float32 gradient error, {(B, D, h, w)}: {readings}")
+    assert readings["no_cudnn"]["largest_ratio"][1] <= 3.0, readings
+
+
+def test_remat_step_matches_the_plain_step(dev):
+    """A float32 train step with ``remat`` against the same step without it
+    on the kernels: loss, gradients and running statistics within float32
+    noise (cuDNN may take other algorithms with other memory free: the
+    losses read 1 float32 step apart), the statistics moved once; K5
+    launched again by the recompute for each of the 9 DCN layers, K3, K6
+    and K4 as without remat."""
+    from transmvsnet_tpu_torch.config import ModelConfig
+    from transmvsnet_tpu_torch.data.example import example_train_batch
+    from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
+    from transmvsnet_tpu_torch.ops.cuda.dcn import deform_conv2d
+    from transmvsnet_tpu_torch.ops.cuda.dcn_bwd import dcn_bwd
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import warp_correlate
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import warp_correlate_bwd
+    from transmvsnet_tpu_torch.train.loop import to_device_batch
+    from transmvsnet_tpu_torch.train.schedule import make_optimizer, warmup_multistep
+    from transmvsnet_tpu_torch.train.step import TrainState, make_train_step
+
+    counters = [(deform_conv2d, "launches_f32"), (dcn_bwd, "launches_f32"), (warp_correlate, "launches_f32"),
+                (warp_correlate_bwd, "launches_f32")]
+    batch = to_device_batch(example_train_batch(B=2, V=3, H=128, W=160, num_hyp=48), dev)
+    runs = {}
+    for remat in (False, True):
+        model = TransMVSNet(ModelConfig(ndepths=(16, 8, 8), remat=remat), device=dev,
+                            generator=torch.Generator().manual_seed(0))
+        state = TrainState(model, *make_optimizer(model.parameters(), warmup_multistep(1e-3, [100], 0.5)))
+        before = [getattr(f, a) for f, a in counters]
+        _, scalars = make_train_step()(state, batch)
+        torch.cuda.synchronize()
+        runs[remat] = {"loss": scalars["loss"].item(),
+                       "launches": [getattr(f, a) - b for (f, a), b in zip(counters, before)],
+                       "grads": {n: p.grad.clone() for n, p in model.named_parameters()},
+                       "buffers": {n: b.clone() for n, b in model.named_buffers()}}
+    plain, remat = runs[False], runs[True]
+    assert plain["launches"] == [9, 9, 3, 3] and remat["launches"] == [18, 9, 3, 3]
+    assert remat["loss"] == pytest.approx(plain["loss"], rel=1e-6)
+    # Each gradient's error relative to its norm, or to 1e-3 of the largest
+    # one's for gradients that are zero in exact arithmetic (a DCN bias
+    # before a train-mode BatchNorm reads float32 noise on both sides).
+    top = max(g.norm() for g in plain["grads"].values())
+    errs = {n: ((remat["grads"][n] - g).norm() / torch.maximum(g.norm(), 1e-3 * top)).item()
+            for n, g in plain["grads"].items()}
+    worst = max(errs, key=errs.get)
+    assert errs[worst] <= 1e-4, (worst, errs[worst])
+    for n, b in plain["buffers"].items():
+        if n.endswith("num_batches_tracked"):
+            assert remat["buffers"][n].item() == b.item() == 1, n
+        else:
+            torch.testing.assert_close(remat["buffers"][n], b, rtol=1e-6, atol=1e-7, msg=n)

@@ -7,7 +7,10 @@ from the same seeded weights: disjoint shards go in, bitwise-equal
 parameters come out, and they are one process's batch-2 run on the same
 two samples, whose step ``tests/test_torch_train.py`` holds against the
 JAX train step (global-batch BatchNorm and gradients: the JAX package's
-``data=2`` run of ``tests/multihost_child.py``). A NaN in one process's
+``data=2`` run of ``tests/multihost_child.py``). With ``remat`` the
+backward's recompute issues BatchNorm's all-reduces again, in the same
+order on both processes, and the run ends where the run without it does.
+A NaN in one process's
 sample makes both skip the step. Without a process group BatchNorm and
 the step take their single-process path. In a file of its own, so that
 ``--dist loadfile`` gives it a worker.
@@ -94,6 +97,11 @@ def sgd_runs(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
+def remat_runs(tmp_path_factory):
+    return _run_two_processes("remat", tmp_path_factory.mktemp("ddp_remat"))
+
+
+@pytest.fixture(scope="module")
 def nan_runs(tmp_path_factory):
     return _run_two_processes("nan", tmp_path_factory.mktemp("ddp_nan"))
 
@@ -147,6 +155,24 @@ def test_batchnorm_reduces_once_per_call(sgd_runs):
     counts = sgd_runs[0]["counts"]
     assert counts["all_reduces"] == counts["bn_calls"] > 0
     assert counts["feature_bn_calls"] == 2 * sgd_runs[0]["n_feature_batchnorms"]
+
+
+def test_remat_across_processes_is_the_run_without(sgd_runs, remat_runs):
+    """Equal parameters on both processes, equal to the run without remat
+    (running statistics and their counts included); every BatchNorm call,
+    the recompute's too, reduced once, and the recompute ran BatchNorm."""
+    r0, r1 = remat_runs
+    assert r0["indices"] == sgd_runs[0]["indices"] and r1["indices"] == sgd_runs[1]["indices"]
+    for k, v in r0["after"].items():
+        assert torch.equal(v, r1["after"][k]), k
+        want = sgd_runs[0]["after"][k]
+        if k.endswith("num_batches_tracked"):
+            assert torch.equal(v, want), k
+        else:
+            torch.testing.assert_close(v, want, rtol=1e-6, atol=1e-7, msg=k)
+    for r, plain in zip(remat_runs, sgd_runs):
+        assert r["counts"]["all_reduces"] == r["counts"]["bn_calls"] > plain["counts"]["bn_calls"]
+        assert [s["loss"] for s in r["scalars"]] == [s["loss"] for s in plain["scalars"]]
 
 
 def test_nan_on_one_process_skips_the_step_on_both(nan_runs):

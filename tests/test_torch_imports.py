@@ -140,6 +140,16 @@ def test_train_cli_defaults_to_cuda(no_cuda, tmp_path):
     assert not any(tmp_path.iterdir())  # it raised before writing anything
 
 
+def test_train_cli_defaults_to_remat():
+    """As the JAX trainer: activations recomputed in the backward unless
+    ``--no_remat``."""
+    from transmvsnet_tpu_torch.tools import train
+
+    args = train.parse_args([])
+    assert not args.no_remat and train.model_config(args).remat
+    assert not train.model_config(train.parse_args(["--no_remat"])).remat
+
+
 def test_kernel_build_needs_cuda(no_cuda):
     from transmvsnet_tpu_torch.ops.cuda import build
 

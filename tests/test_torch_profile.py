@@ -42,3 +42,39 @@ def test_train_cli_profile_mode_delegates(monkeypatch, tmp_path):
     assert (args.batch_size, args.nviews, args.ndepths, args.dtype) == (1, 4, "32,16,8", "bfloat16")
     assert profile.pass_shape(args) == (1, 512, 640)
     assert not any(tmp_path.iterdir())
+
+
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "3d"])
+def test_split_cost_reg_puts_each_launch_in_its_innermost_part(monkeypatch, dense):
+    """``--split_cost_reg``'s ranges on a CPU trace, the leaf operators
+    standing in for kernels: each stage's time is the sum of its parts, the
+    dense form's weight einsums are a part of their own, and the patches
+    and hooks are gone afterwards."""
+    from torch.nn import functional as F
+    from torch.profiler import ProfilerActivity
+
+    from transmvsnet_tpu_torch.config import ModelConfig
+    from transmvsnet_tpu_torch.data.example import example_train_batch
+    from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    model = TransMVSNet(ModelConfig(ndepths=(8, 8, 8), dense_cost_reg=dense), device="cpu",
+                        generator=torch.Generator().manual_seed(0)).eval()
+    batch = example_train_batch(B=1, V=2, H=32, W=32, num_hyp=48)
+    args = [torch.as_tensor(batch["imgs"]), {k: torch.as_tensor(v) for k, v in batch["proj_matrices"].items()},
+            torch.as_tensor(batch["depth_values"])]
+    conv2d, einsum = F.conv2d, torch.einsum
+    with profile.split_cost_reg(model), torch.profiler.profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.no_grad():
+            model(*args)
+    assert (F.conv2d, torch.einsum) == (conv2d, einsum)
+    assert all(not m._forward_hooks and not m._forward_pre_hooks for m in model.cost_regularization.modules())
+    events = prof.events()
+    leaves = [e for e in events if not e.cpu_children and e.name.startswith("aten::")]
+    split = profile.split_totals(events, leaves, passes=1)
+    assert sorted(split) == ["cost_reg_stage1", "cost_reg_stage2", "cost_reg_stage3"]
+    for stage in split.values():
+        parts = {k: v for k, v in stage.items() if isinstance(v, dict)}
+        assert set(parts) == {"conv", "batchnorm", "rest"} | ({"weights"} if dense else set())
+        assert sum(p["launches_per_pass"] for p in parts.values()) == stage["launches_per_pass"]
+        assert sum(p["ms_per_pass"] for p in parts.values()) == pytest.approx(stage["ms_per_pass"])

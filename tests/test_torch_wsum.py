@@ -335,7 +335,10 @@ def test_bf16_train_step_through_the_fused_route_matches_plain_autograd(monkeypa
     calls = []
     monkeypatch.setattr(port_model, "warp_correlate_wsum_with_vjp",
                         lambda *a: calls.append(1) or warp_correlate_wsum_with_vjp(*a))
-    cfg = ModelConfig(ndepths=NDEPTHS, compute_dtype="bfloat16", fused_view_sum=True)
+    # The 3-D cost regulariser, with whose bf16 gradients into the warp the
+    # tolerance below was set; the dense form (the default) is the next
+    # test's.
+    cfg = ModelConfig(ndepths=NDEPTHS, compute_dtype="bfloat16", fused_view_sum=True, dense_cost_reg=False)
     loss, grads, routes = _train_step_grads(False, batch, cfg)
     assert len(calls) == 2 and routes == ["_DCNFusedBackward"] * 9
     want_loss, want, _ = _train_step_grads(True, batch, cfg)
@@ -350,3 +353,61 @@ def test_bf16_train_step_through_the_fused_route_matches_plain_autograd(monkeypa
         # before the same rounding: 1e-4 of each value plus 5e-5 of the
         # largest gradient (the worst read 1e-5 of it).
         torch.testing.assert_close(grads[n], w, rtol=1e-4, atol=5e-5 * top, msg=n)
+
+
+def _one_step_up_at_the_largest(g):
+    """``g`` with its largest-magnitude element moved one step of its dtype
+    towards +inf."""
+    flat = g.clone().flatten()
+    i = flat.abs().argmax()
+    flat[i] = torch.nextafter(flat[i], torch.tensor(float("inf"), dtype=g.dtype))
+    return flat.view_as(g)
+
+
+def test_bf16_train_step_with_the_dense_cost_reg_through_the_fused_route_matches_plain_autograd(monkeypatch):
+    """The previous test with the dense cost regulariser (the default).
+
+    Both routes receive the same gradients into the features; inside
+    FeatureNet the Functions' float32 backward and autograd's differ by
+    float32 rounding, which flips a few bf16 roundings of the gradient,
+    and train-mode BatchNorm spreads each flip over its whole channel on
+    the way down. The witness of that noise is the plain step again with
+    one bf16 step added to the largest gradient element of each DCN
+    layer's output: it moves FeatureNet's first conv's gradient by 9.9e-3
+    of the largest gradient (the 3-D form's by 1.0e-2, where the routes
+    happen to flip no rounding), and the routes part by no more than it
+    moves each parameter (worst 1.0 of it, conv0's first conv). Each
+    gradient is held to twice the witness's move of it, and to the
+    previous test's tolerance where that is larger."""
+    from transmvsnet_tpu_torch.models.feature_net import DCN
+
+    batch = to_device_batch(example_train_batch(B=1, V=V, H=32, W=64, num_hyp=48), torch.device("cpu"))
+    calls = []
+    monkeypatch.setattr(port_model, "warp_correlate_wsum_with_vjp",
+                        lambda *a: calls.append(1) or warp_correlate_wsum_with_vjp(*a))
+    cfg = ModelConfig(ndepths=NDEPTHS, compute_dtype="bfloat16", fused_view_sum=True)
+    assert cfg.dense_cost_reg
+    loss, grads, routes = _train_step_grads(False, batch, cfg)
+    assert len(calls) == 2 and routes == ["_DCNFusedBackward"] * 9
+    want_loss, want, _ = _train_step_grads(True, batch, cfg)
+    forward = DCN.forward
+
+    def nudged(self, *args):
+        out = forward(self, *args)
+        out.register_hook(_one_step_up_at_the_largest)
+        return out
+
+    with monkeypatch.context() as m:
+        m.setattr(DCN, "forward", nudged)
+        witness_loss, witness, _ = _train_step_grads(True, batch, cfg)
+    assert np.isfinite(loss)
+    np.testing.assert_allclose(loss, want_loss, rtol=1e-6)
+    assert witness_loss == want_loss
+    top = max(w.abs().max() for w in want.values()).item()
+    moved = {n: (witness[n] - w).abs().max().item() for n, w in want.items()}
+    # The witness is a one-step nudge: it moves no gradient by more than a
+    # few hundredths of the largest (read 9.9e-3 at worst).
+    assert max(moved.values()) <= 0.05 * top, max(moved.values()) / top
+    for n, w in want.items():
+        torch.testing.assert_close(grads[n], w, rtol=1e-4, atol=max(5e-5 * top, 2 * moved[n]), msg=n)
+

@@ -10,7 +10,9 @@ replicate`` and trains two steps of ``train/step.py``: with plain SGD for
 ``case`` "sgd" (its update is linear in the gradient, so the run can be
 held to one process's batch-2 run; Adam's first steps move each element by
 about lr * sign(g), which float32 rounding flips where a gradient is near
-zero), with the CLI's Adam for ``case`` "nan", where process 1's first
+zero) and for ``case`` "remat" (the same run with ``ModelConfig.remat``:
+the backward recomputes BatchNorm's all-reduces), with the CLI's Adam for
+``case`` "nan", where process 1's first
 sample carries a NaN pixel and the group is joined from torchrun's
 environment variables instead of arguments. Writes ``<outdir>/out_<process_id>.pt``: the
 shard's indices, the state before, after the first step and at the end,
@@ -53,8 +55,9 @@ def main():
     assert distributed.world_size() == 2 and distributed.rank() == pid
 
     loader = ShardedLoader(SyntheticDataset(**DATA), batch_size=1, num_shards=2, shard_id=pid, num_workers=0)
-    model = TransMVSNet(ModelConfig(ndepths=NDEPTHS), device="cpu", generator=torch.Generator().manual_seed(0))
-    if case == "sgd":
+    model = TransMVSNet(ModelConfig(ndepths=NDEPTHS, remat=case == "remat"), device="cpu",
+                        generator=torch.Generator().manual_seed(0))
+    if case in ("sgd", "remat"):
         optimizer = torch.optim.SGD(model.parameters(), lr=SGD_LR)
         scheduler = torch.optim.lr_scheduler.LambdaLR(optimizer, lambda step: 1.0)
     else:

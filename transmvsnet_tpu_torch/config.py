@@ -22,9 +22,23 @@ class ModelConfig:
     fmt_layers: Sequence[str] = ("self", "cross") * 4
     # Final-depth clamp range; None keeps float depth unclamped.
     depth_clamp: tuple[float, float] | None = None
+    # Run all views through FeatureNet as one batch. False runs it once
+    # per view, so train-mode BatchNorm takes per-view statistics (as the
+    # reference does) and updates its running statistics once per view.
+    batch_views_jointly: bool = True
     # Activation dtype: "float32" or "bfloat16" (geometry, softmax and
     # depth stay float32 either way).
     compute_dtype: str = "float32"
+    # Recompute FeatureNet, the FMT, PixelwiseNet and the cost regularisers
+    # in the backward instead of keeping their activations
+    # (torch.utils.checkpoint at module granularity, only while autograd
+    # records). The training CLI turns it on unless --no_remat.
+    remat: bool = False
+    # Depth-as-channels cost regularisation (models/cost_reg.py::
+    # CostRegNetDense): the 3-D U-Net's function in the same parameters,
+    # as 2-D convs over D*C channels with block-banded weights. False runs
+    # the 3-D convs.
+    dense_cost_reg: bool = True
     # Accumulate the weighted view sum inside the warp kernel at stages
     # with precomputed view weights (2-3) when the features are bf16,
     # never materialising the [B, S, D, h, w] per-view volume (K7 forward,

@@ -9,11 +9,13 @@ are the reference checkpoint's (torch's own ``weight``/``bias``/
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from transmvsnet_tpu_torch.parallel import distributed
 
@@ -70,7 +72,8 @@ class LayerNorm(nn.LayerNorm):
 
 
 class BatchNorm(nn.Module):
-    """torch batch norm over channel dim 1, computed in float32.
+    """torch batch norm over channel dim 1, computed in float32 (float64
+    input in float64).
 
     Train mode normalises with the biased batch variance and updates the
     running variance with the unbiased one, momentum 0.1 (the JAX
@@ -85,6 +88,10 @@ class BatchNorm(nn.Module):
     reference's SyncBatchNorm, reference train.py:363). ``torch.nn.
     SyncBatchNorm`` is not used: it refuses CPU tensors. With one process
     the statistics are the local batch's.
+
+    While ``recomputing`` (``remat``'s backward reruns the layer) it
+    rebuilds the batch statistics, their all-reduce included, but leaves
+    the running statistics alone: they were updated by the forward.
     """
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
@@ -95,10 +102,11 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+        self.recomputing = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = [1, -1] + [1] * (x.ndim - 2)
-        xf = x.float()
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             axes = [0] + list(range(2, x.ndim))
             mean = xf.mean(axes)
@@ -111,16 +119,42 @@ class BatchNorm(nn.Module):
                 mean, mean_sq = all_reduce(torch.stack([mean, mean_sq])) / processes
                 n *= processes
             var = mean_sq - mean * mean
-            with torch.no_grad():
-                m = self.momentum
-                self.running_mean.mul_(1 - m).add_(m * mean)
-                self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1.0, 1.0)))
-                self.num_batches_tracked.add_(1)
+            if not self.recomputing:
+                self._update_running(mean, var, n)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean.view(shape)) * inv.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
+
+    @torch.no_grad()
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor, n: float) -> None:
+        m = self.momentum
+        self.running_mean.mul_(1 - m).add_(m * mean)
+        self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1.0, 1.0)))
+        self.num_batches_tracked.add_(1)
+
+
+@contextlib.contextmanager
+def _recomputing(module: nn.Module):
+    """``module``'s BatchNorm layers marked as recomputing inside the block."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.recomputing = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.recomputing = False
+
+
+def remat(module: nn.Module, *args):
+    """``module(*args)`` with its activations recomputed in the backward
+    instead of kept (the JAX package's ``nn.remat``), BatchNorm's running
+    statistics updated once. Nothing in the model draws random numbers,
+    so the RNG state is not saved for the recompute."""
+    return checkpoint(module, *args, use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _recomputing(module)))
 
 
 class ConvBnReLU(nn.Module):

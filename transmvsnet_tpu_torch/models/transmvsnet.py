@@ -5,10 +5,14 @@ per-stage depth hypotheses, per-source-view warp + correlation weighted by
 PixelwiseNet visibility (computed at stage 1, nearest-upsampled x2 for the
 later stages), 3-D U-Net regularisation, softmax over depth, winner-take-
 all depth with max-probability confidence. Views go through FeatureNet as
-one batch; all source views of a stage go through one warp-correlation
-launch (with ``fused_view_sum`` and bf16 features, stages 2-3 sum the
-views inside it). ``forward`` keeps the JAX package's channel-last input
-contract.
+one batch (``batch_views_jointly``) or one at a time; all source views of
+a stage go through one warp-correlation launch (with ``fused_view_sum``
+and bf16 features, stages 2-3 sum the views inside it). The cost
+regulariser is ``CostRegNetDense`` or ``CostRegNet`` (``dense_cost_reg``);
+with ``remat`` the four modules the JAX package rematerialises
+(FeatureNet, the FMT, PixelwiseNet, each cost regulariser) recompute their
+activations in the backward. ``forward`` keeps the JAX package's
+channel-last input contract.
 """
 
 from __future__ import annotations
@@ -19,8 +23,8 @@ import torch
 from torch import nn
 
 from transmvsnet_tpu_torch.config import ModelConfig
-from transmvsnet_tpu_torch.models.blocks import init_parameters, resolve_device
-from transmvsnet_tpu_torch.models.cost_reg import CostRegNet, PixelwiseNet
+from transmvsnet_tpu_torch.models.blocks import init_parameters, remat, resolve_device
+from transmvsnet_tpu_torch.models.cost_reg import CostRegNet, CostRegNetDense, PixelwiseNet
 from transmvsnet_tpu_torch.models.feature_net import DCN, FeatureNet
 from transmvsnet_tpu_torch.models.fmt import FMTWithPathway
 from transmvsnet_tpu_torch.ops.cuda.warp_correlate import (
@@ -69,8 +73,9 @@ class TransMVSNet(nn.Module):
         self.FMT_with_pathway = FMTWithPathway(
             cfg.base_channels, cfg.fmt_d_model, cfg.fmt_nhead, tuple(cfg.fmt_layers)
         )
+        cost_reg_cls = CostRegNetDense if cfg.dense_cost_reg else CostRegNet
         self.cost_regularization = nn.ModuleList(
-            CostRegNet(1, c) for c in cfg.cr_base_channels
+            cost_reg_cls(1, c) for c in cfg.cr_base_channels
         )
         self.DepthNet = _DepthNet()
         self.plain_ops = False
@@ -88,12 +93,25 @@ class TransMVSNet(nn.Module):
             if isinstance(m, DCN):
                 m.plain = plain
 
+    def _call(self, module: nn.Module, *args):
+        """``module(*args)``, rematerialised when ``cfg.remat`` and autograd
+        records (inference under ``no_grad`` runs as without remat)."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return remat(module, *args)
+        return module(*args)
+
     def extract_features(self, imgs: torch.Tensor) -> dict[str, torch.Tensor]:
         """imgs [B, V, H, W, 3] -> {"stageN": [B, V, C, h, w]}."""
         B, V = imgs.shape[:2]
-        x = imgs.to(self.dtype).permute(0, 1, 4, 2, 3).reshape(B * V, 3, *imgs.shape[2:4])
-        feats = {k: v.unflatten(0, (B, V)) for k, v in self.feature(x).items()}
-        feats = self.FMT_with_pathway(feats)
+        # [B, V, 3, H, W], channel-last in memory: FeatureNet's convs run
+        # in that layout.
+        x = imgs.to(self.dtype).permute(0, 1, 4, 2, 3)
+        if self.cfg.batch_views_jointly:
+            feats = {k: v.unflatten(0, (B, V)) for k, v in self._call(self.feature, x.flatten(0, 1)).items()}
+        else:
+            per_view = [self._call(self.feature, x[:, v]) for v in range(V)]
+            feats = {k: torch.stack([f[k] for f in per_view], 1) for k in per_view[0]}
+        feats = self._call(self.FMT_with_pathway, feats)
         return {k: v.to(self.dtype) for k, v in feats.items()}
 
     def depth_stage(
@@ -135,14 +153,14 @@ class TransMVSNet(nn.Module):
                 # Gradients flow through the weights used in this stage's
                 # sum; later stages get the detached copy (reference
                 # TransMVSNet.py:82-84,107).
-                w_used = self.DepthNet.pixel_wise_net(sim.reshape(B * S, 1, D, h, w))
+                w_used = self._call(self.DepthNet.pixel_wise_net, sim.reshape(B * S, 1, D, h, w))
                 w_used = w_used.reshape(B, S, h, w)
                 view_weights = w_used.detach()
             else:
                 w_used = view_weights
             wb = w_used[:, :, None]
             similarity = (sim * wb).sum(1) / (1e-5 + wb.sum(1))
-        cost = cost_reg(similarity.to(self.dtype)[:, None])[:, 0]
+        cost = self._call(cost_reg, similarity.to(self.dtype)[:, None])[:, 0]
         prob_volume = torch.softmax(cost.float(), dim=1)
         outputs = {
             "depth": depth_wta(prob_volume, depth_values),

@@ -3,7 +3,8 @@ torch.profiler.
 
     python -m transmvsnet_tpu_torch.tools.profile [--train] [--logdir ./traces]
         [--nviews 5 --ndepths 48,32,8] [--dtype float32|bfloat16] [--fused]
-        [--height H --width W --batch_size B]
+        [--height H --width W --batch_size B] [--remat] [--dense_cost_reg 0|1]
+        [--split_cost_reg]
 
 Warm-up passes, then ``--iters`` passes traced with CPU and CUDA activity;
 a pass is one forward, by default at the DTU eval setting (batch 1,
@@ -19,12 +20,20 @@ channels-last copy and K4's and K8's copy and planar write), and every
 launch of 1 ms or more in the first traced pass, in order. With
 ``--logdir`` it also writes a Chrome trace. Weights are random from a seeded generator; activations in
 ``--dtype`` (float32 by default, as the CLIs); ``--fused`` sets
-``fused_view_sum`` (bf16 stages 2-3 through K7 and K8).
+``fused_view_sum`` (bf16 stages 2-3 through K7 and K8), ``--remat``
+``ModelConfig.remat`` (a train step recomputes the activations in its
+backward), ``--dense_cost_reg`` the cost regulariser's form (by default
+the config's). ``--split_cost_reg`` adds, per stage, the device time of
+the cost regulariser's forward by part (``split_cost_reg``); it
+synchronises the card around every part, so the pass's wall time is not
+comparable with a run without it.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import os
 from collections import defaultdict
@@ -51,6 +60,11 @@ def parse_args(argv=None):
     p.add_argument("--ndepths", default="48,32,8")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"])
     p.add_argument("--fused", action="store_true", help="fused_view_sum=True (bf16 stages 2-3 via K7/K8)")
+    p.add_argument("--remat", action="store_true", help="ModelConfig.remat (train steps recompute activations)")
+    p.add_argument("--dense_cost_reg", type=int, choices=[0, 1], default=None,
+                   help="1: CostRegNetDense, 0: the 3-D CostRegNet (default: the config's)")
+    p.add_argument("--split_cost_reg", action="store_true",
+                   help="each cost regulariser's forward device time by part (convs, weight einsum, BatchNorm, rest)")
     p.add_argument("--height", type=int, default=0, help="0 = 512 with --train, 864 without")
     p.add_argument("--width", type=int, default=0, help="0 = 640 with --train, 1152 without")
     p.add_argument("--batch_size", type=int, default=0, help="0 = 2 with --train, 1 without")
@@ -69,6 +83,94 @@ def busy_us(intervals: list[tuple[float, float]]) -> float:
         total += e - max(s, end)
         end = e
     return total
+
+
+@contextlib.contextmanager
+def split_cost_reg(model):
+    """Inside the block, each cost regulariser's forward runs in a
+    ``record_function`` range "cost_reg_stageN", and within it every conv
+    call, weight einsum and BatchNorm in a range of its own
+    ("cost_reg_stageN/conv", ".../weights", ".../batchnorm"), with the card
+    synchronised at each range's ends, so that each kernel falls in the
+    innermost range its start lies in (``split_totals``). What lies in no
+    part (ReLU, skip additions, the banded weight's cast, layout copies) is
+    the stage's "rest"."""
+    import torch.nn.functional as F
+    from torch.autograd.profiler import record_function
+
+    from transmvsnet_tpu_torch.models.blocks import BatchNorm
+
+    stack = []
+
+    def enter(label):
+        torch.cuda.synchronize()
+        r = record_function(label)
+        r.__enter__()
+        stack.append((label, r))
+
+    def leave():
+        torch.cuda.synchronize()
+        stack.pop()[1].__exit__(None, None, None)
+
+    def part(fn, name):
+        def run(*args, **kwargs):
+            if not stack:
+                return fn(*args, **kwargs)
+            enter(f"{stack[0][0]}/{name}")
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                leave()
+        return run
+
+    patched = [(F, n, "conv") for n in ("conv2d", "conv_transpose2d", "conv3d", "conv_transpose3d")]
+    patched.append((torch, "einsum", "weights"))
+    originals = [(owner, n, getattr(owner, n)) for owner, n, _ in patched]
+    for owner, n, name in patched:
+        setattr(owner, n, part(getattr(owner, n), name))
+    handles = []
+    for i, reg in enumerate(model.cost_regularization):
+        handles.append(reg.register_forward_pre_hook(lambda m, a, i=i: enter(f"cost_reg_stage{i + 1}")))
+        handles.append(reg.register_forward_hook(lambda m, a, o: leave()))
+        for bn in (m for m in reg.modules() if isinstance(m, BatchNorm)):
+            handles.append(bn.register_forward_pre_hook(
+                lambda m, a: enter(f"{stack[0][0]}/batchnorm") if stack else None))
+            handles.append(bn.register_forward_hook(lambda m, a, o: leave() if stack else None))
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+        for owner, n, fn in originals:
+            setattr(owner, n, fn)
+
+
+def split_totals(events, kernels, passes: int) -> dict:
+    """Device milliseconds and launches per pass of each "cost_reg_*" range
+    of ``split_cost_reg``: each kernel counted in the innermost range its
+    start lies in, a stage's total over its parts and "rest"."""
+    ranges = sorted(((e.time_range.start, e.time_range.end, e.name) for e in events
+                     if e.name.startswith("cost_reg_stage")), key=lambda r: r[1] - r[0])
+    out: dict = {}
+    for k in kernels:
+        t = k.time_range.start
+        label = next((name for s, e, name in ranges if s <= t <= e), None)
+        if label is None:
+            continue
+        stage, _, name = label.partition("/")
+        entry = out.setdefault(stage, {"ms_per_pass": 0.0, "launches_per_pass": 0.0}).setdefault(
+            name or "rest", {"ms_per_pass": 0.0, "launches_per_pass": 0.0, "top": defaultdict(float)})
+        us = k.time_range.elapsed_us()
+        entry["ms_per_pass"] += us / 1e3 / passes
+        entry["launches_per_pass"] += 1 / passes
+        entry["top"][k.name[:100]] += us / 1e3 / passes
+        out[stage]["ms_per_pass"] += us / 1e3 / passes
+        out[stage]["launches_per_pass"] += 1 / passes
+    for parts in out.values():
+        for entry in parts.values():
+            if isinstance(entry, dict):
+                entry["top"] = sorted(entry["top"].items(), key=lambda kv: -kv[1])[:4]
+    return out
 
 
 def port_kernel_totals(by_name: dict, passes: int) -> dict:
@@ -104,7 +206,9 @@ def main(argv=None):
 
     dev = torch.device("cuda", 0)
     cfg = ModelConfig(ndepths=tuple(int(x) for x in args.ndepths.split(",")),
-                      compute_dtype=args.dtype, fused_view_sum=args.fused)
+                      compute_dtype=args.dtype, fused_view_sum=args.fused, remat=args.remat)
+    if args.dense_cost_reg is not None:
+        cfg = dataclasses.replace(cfg, dense_cost_reg=bool(args.dense_cost_reg))
     model = TransMVSNet(cfg, device=dev, generator=torch.Generator().manual_seed(0))
     batch = to_device_batch(example_train_batch(B=batch_size, V=args.nviews, H=height, W=width), dev)
 
@@ -125,7 +229,8 @@ def main(argv=None):
         forward()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    split = split_cost_reg(model) if args.split_cost_reg else contextlib.nullcontext()
+    with split, profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         start.record()
         for _ in range(args.iters):
             forward()
@@ -133,7 +238,10 @@ def main(argv=None):
         torch.cuda.synchronize()
     wall_ms = start.elapsed_time(end) / args.iters
 
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    # (Device-side copies of the split's ranges, where the trace has them,
+    # are not launches.)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.name.startswith("cost_reg_stage")]
     if not kernels:
         raise RuntimeError("the trace holds no device activity; time with CUDA events instead")
     by_name: dict[str, list[float]] = defaultdict(lambda: [0.0, 0])
@@ -150,6 +258,9 @@ def main(argv=None):
         "ndepths": list(cfg.ndepths),
         "dtype": cfg.compute_dtype,
         "fused_view_sum": cfg.fused_view_sum,
+        "remat": cfg.remat,
+        "dense_cost_reg": cfg.dense_cost_reg,
+        "split_cost_reg": args.split_cost_reg,
         "wall_ms_per_pass": wall_ms,
         "device_busy_ms_per_pass": device_ms,
         "idle_share": 1.0 - device_ms / wall_ms,
@@ -166,6 +277,8 @@ def main(argv=None):
             if e.time_range.elapsed_us() >= 1e3
         ],
     }
+    if args.split_cost_reg:
+        result["cost_reg_by_part"] = split_totals(prof.events(), kernels, args.iters)
     print(json.dumps(result))
     if args.logdir:
         os.makedirs(args.logdir, exist_ok=True)

@@ -33,7 +33,9 @@ group (``parallel/distributed.py``: NCCL on CUDA, gloo on the CPU; the
 flags, or torchrun's environment where they are omitted); each process
 then trains a disjoint shard of the data at ``--batch_size`` per process,
 with gradients averaged by DDP and BatchNorm over the global batch, and
-rank 0 alone logs and writes checkpoints. Checkpoints are
+rank 0 alone logs and writes checkpoints. As in the JAX trainer, the
+model recomputes its activations in the backward (``ModelConfig.remat``)
+unless ``--no_remat``. Checkpoints are
 ``<logdir>/model_NNNNNN.ckpt`` in the reference's layout; ``--resume``
 continues from the latest on every process, ``--loadckpt`` loads weights
 only. ``--mode profile`` traces train steps at this run's batch, views
@@ -101,7 +103,19 @@ def parse_args(argv=None):
     p.add_argument("--coordinator", default="", help="host:port of process 0")
     p.add_argument("--num_processes", type=int, default=0, help="0 = WORLD_SIZE")
     p.add_argument("--process_id", type=int, default=-1, help="-1 = RANK")
+    p.add_argument("--no_remat", action="store_true",
+                   help="keep the activations for the backward instead of recomputing them "
+                        "(remat is on by default, as in the JAX trainer)")
     return p.parse_args(argv)
+
+
+def model_config(args) -> ModelConfig:
+    return ModelConfig(
+        ndepths=tuple(int(x) for x in args.ndepths.split(",")),
+        depth_interval_ratios=tuple(float(x) for x in args.depth_inter_r.split(",")),
+        compute_dtype=args.dtype,
+        remat=not args.no_remat,
+    )
 
 
 def build_dataset(args, split: str, device: torch.device):
@@ -120,12 +134,13 @@ def build_dataset(args, split: str, device: torch.device):
 
 def profile(args):
     """``--mode profile``: tools/profile.py's train steps at this run's
-    per-process batch, views, hypotheses and dtype."""
+    per-process batch, views, hypotheses, dtype and remat."""
     from transmvsnet_tpu_torch.tools import profile as profile_tool
 
     return profile_tool.main([
         "--logdir", os.path.join(args.logdir, "traces"), "--train", "--batch_size", str(args.batch_size),
         "--nviews", str(args.nviews), "--ndepths", args.ndepths, "--dtype", args.dtype,
+        *([] if args.no_remat else ["--remat"]),
     ])
 
 
@@ -147,12 +162,7 @@ def main(argv=None) -> TrainState:
 def train(args, device: torch.device) -> TrainState:
     np.random.seed(args.seed)
 
-    cfg = ModelConfig(
-        ndepths=tuple(int(x) for x in args.ndepths.split(",")),
-        depth_interval_ratios=tuple(float(x) for x in args.depth_inter_r.split(",")),
-        compute_dtype=args.dtype,
-    )
-    model = TransMVSNet(cfg, device=device, generator=torch.Generator().manual_seed(args.seed))
+    model = TransMVSNet(model_config(args), device=device, generator=torch.Generator().manual_seed(args.seed))
     if args.loadckpt:
         load_checkpoint(model, args.loadckpt)
         print(f"loaded weights from {args.loadckpt}")
