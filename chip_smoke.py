@@ -2,7 +2,8 @@
 in bfloat16, in float32 (the JAX package's default), and in bfloat16 with
 the fused view sum (``fused_view_sum=True``); then the evaluation pipeline
 (read, infer, write, fuse, score) and the training side (two processes,
-the training CLI on DTU and BlendedMVS data) through the CLIs.
+the training CLI on DTU and BlendedMVS data) through the CLIs; then the
+(data, view, depth) mesh in processes sharing the card.
 
     python3 chip_smoke.py
 
@@ -97,10 +98,24 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this repository's
    --dataset blended --loss bld --no_remat,
    its samples on the card (nvJPEG) against the CPU's (PIL) within the
    codec gate.
-8. The pipeline's and the training side's figures, the two cost
-   regularisation forms' and the remat step's, the kernel line (phase
-   3's kernels, and the native fuser's from phase 6), the card's name and
-   power limit, and last ``{"ok": true, "device": {...}}``.
+8. The mesh (``parallel/mesh.py``; ``--mesh-child``, processes sharing
+   the one card through gloo): first K2, K6, K4, K7 and K8 against their
+   plain versions on the shares of the source views and hypothesis slabs
+   the meshes below give a process (K7/K8 on depth slabs of two, where
+   the fused view sum stays on); then the DTU recipe (float32 with remat,
+   the CLI's default; batch 1, Adam) at (1, 2, 1) and (1, 1, 2) in two
+   processes and at (1, 2, 2) in four, and the DTU-eval forward in bf16
+   and float32 at (1, 2, 2), each against one process on the card:
+   update cosines per group (MESH_UPDATE_COSINE_MIN), depth, probability
+   columns and confidence (MESH_AGREE_MIN), parameters bitwise equal
+   across the processes, each process's launches per pass and the shapes
+   its warp kernels received (its share), the collectives' bytes per kind
+   and call site (``parallel/collectives.py``), ms per step and per map.
+9. The pipeline's, the training side's and the mesh's figures, the two
+   cost regularisation forms' and the remat step's, the kernel line
+   (phase 3's kernels with their mesh shares and launches, and the native
+   fuser's from phase 6), the card's name and power limit, and last
+   ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -109,6 +124,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 
@@ -2691,6 +2707,412 @@ def training_side(dev, paths: dict) -> dict:
     return out
 
 
+# --- Phase 8: the mesh -----------------------------------------------------
+
+# The (data, view, depth) meshes of ``parallel/mesh.py`` in processes that
+# share the one card through gloo (NCCL refuses two ranks on one device),
+# started as ``chip_smoke.py --mesh-child``: the DTU recipe (512x640, 5
+# views, 48/32/8, float32 with remat: the training CLI's default; Adam;
+# batch 1 per data group) at each mesh of MESH_TRAIN, one warm-up and
+# MESH_STEPS timed steps, and the DTU-eval forward (1152x864, 5 views,
+# batch 1) in bf16 and float32 at MESH_INFER, each against one process on
+# the card on the same samples and weights, in full float32 arithmetic
+# (TF32 off), as phase 7. Processes sharing one card say nothing about
+# speed across cards: their ms are printed as measured, nothing more.
+MESH_STEPS = 3
+MESH_TRAIN = {2: [(1, 2, 1), (1, 1, 2)], 4: [(1, 2, 2)]}  # processes: meshes
+MESH_INFER = (1, 2, 2)
+# A mesh sums its reductions in other orders than one process (the view
+# sums, PixelwiseNet's statistics, the FMT's KV), and Adam's first steps
+# move each element by about lr * sign(g): the float32 gate of phase 7.
+# On an NVIDIA H100 80GB HBM3 at 700 W the lowest group (FeatureNet) read
+# 0.979-0.981 at the three meshes in two runs, the one process repeated
+# (K3's and K4's atomics) 0.989 and 0.998.
+MESH_UPDATE_COSINE_MIN = DDP_UPDATE_COSINE_MIN["float32"]
+# The forwards against one process, in full float32 arithmetic: float32
+# differs in summation order only, so its stage-3 depth (within one
+# interval), probability columns and confidence (within DENSE_PROB_TOL of
+# the column's spread) are gated as the two cost regularisation forms'
+# (DENSE_AGREE_MIN). In bf16 a sum taken in another order (the FMT's KV,
+# its GEMMs on half the tokens) rounds to another bf16 value now and then
+# and eight FMT layers carry it on, so only the stage-3 depth is gated,
+# at bf16's rounding floor, beside the witness of that floor: one process
+# with its DCN outputs nudged by one bf16 step (``nudged_dcn_outputs``).
+# On an NVIDIA H100 80GB HBM3 at 700 W the mesh read, float32: depth
+# 100%, columns 99.9991%, confidence 99.9999%; bf16: depth 97.19%,
+# columns 75.6%, confidence 95.4%, the witness 96.90%, 66.6% and 91.0%.
+# The processes of a mesh compute the same outputs (bitwise equal in
+# that run): their stage-3 depths are held to one another at the same
+# gates.
+MESH_AGREE_MIN = {"float32": DENSE_AGREE_MIN["float32"], "bfloat16": 0.95}
+
+
+def mesh_name(shape) -> str:
+    return "x".join(map(str, shape))
+
+
+@contextlib.contextmanager
+def recorded_sweeps(calls: list):
+    """Each warp-correlation kernel call's (kernel, views, hypotheses, h, w)
+    appended to ``calls`` inside the block (the wrappers that
+    ``ops/vjp.py`` launches)."""
+    from transmvsnet_tpu_torch.ops import vjp
+
+    def record(kernel):
+        def wrap(fn):
+            def recording(src, ref, src_proj, ref_proj, depth, *args, **kwargs):
+                calls.append((kernel, src.shape[1], *depth.shape[1:]))
+                return fn(src, ref, src_proj, ref_proj, depth, *args, **kwargs)
+            return recording
+        return wrap
+
+    with contextlib.ExitStack() as stack:
+        for kernel in ("warp_correlate", "warp_correlate_wsum", "warp_correlate_bwd", "warp_correlate_wsum_bwd"):
+            stack.enter_context(patched(vjp, kernel, record(kernel)))
+        yield
+
+
+def expected_sweeps(kernels: tuple, ph: int, pw: int) -> list:
+    """The (kernel, views, hypotheses, h, w) this process gives the warp
+    kernels in one pass on the active mesh: its chunk of the 4 sources and
+    its slab of each stage's hypotheses."""
+    from transmvsnet_tpu_torch.parallel import sharding
+
+    out = []
+    for i, D in enumerate(NDEPTHS):
+        scale = 2 ** (2 - i)
+        for kernel in kernels:
+            out.append((kernel, sharding.chunk(V - 1, "view")[1], sharding.chunk(D, "depth")[1],
+                        ph // scale, pw // scale))
+    return out
+
+
+def mesh_train(dev, shape=None) -> dict:
+    """The DTU recipe, float32 with remat, batch 1, on this process's share
+    of ``shape`` (one process without): parameters before and after, losses,
+    ms per step, launches and collectives over the timed steps, the warp
+    kernels' shapes in one step, peak memory."""
+    import time
+
+    from transmvsnet_tpu_torch.config import MeshConfig, ModelConfig
+    from transmvsnet_tpu_torch.data.example import example_train_batch
+    from transmvsnet_tpu_torch.data.loader import ShardedLoader
+    from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
+    from transmvsnet_tpu_torch.parallel import collectives
+    from transmvsnet_tpu_torch.parallel.mesh import make_mesh
+    from transmvsnet_tpu_torch.parallel.sharding import replicate, sharding_rules, unwrap
+    from transmvsnet_tpu_torch.train.loop import to_device_batch
+    from transmvsnet_tpu_torch.train.schedule import make_optimizer, warmup_multistep
+    from transmvsnet_tpu_torch.train.step import TrainState, make_train_step
+
+    mesh = make_mesh(MeshConfig(*shape) if shape else None)
+    samples = split_samples(example_train_batch(B=1 + MESH_STEPS, V=V, H=TRAIN_H, W=TRAIN_W, num_hyp=NUM_HYP))
+    batches = [to_device_batch(b, dev) for b in ShardedLoader(samples, 1, num_workers=0)]
+    model = TransMVSNet(ModelConfig(ndepths=NDEPTHS, remat=True), device=dev,
+                        generator=torch.Generator().manual_seed(0))
+    before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    state = TrainState(replicate(model),
+                       *make_optimizer(model.parameters(), warmup_multistep(1e-3, [10**6], 0.5)))
+    step = make_train_step()
+    losses, sweeps = [], []
+    with sharding_rules(mesh):
+        for i, batch in enumerate(batches):
+            if i == 1:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                collectives.reset()
+                t0 = time.perf_counter()
+            with recorded_sweeps(sweeps) if i == 0 else contextlib.nullcontext():
+                _, scalars = step(state, batch)
+            losses.append(scalars["loss"].item())
+            if scalars["skipped_nan"].item():
+                raise AssertionError(f"mesh {shape}: a step skipped a non-finite loss: {losses}")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / MESH_STEPS
+        expected = expected_sweeps(("warp_correlate", "warp_correlate_bwd"), TRAIN_H, TRAIN_W)
+    return {"coords": mesh.coords, "losses": losses, "ms_per_step": ms, "launches": read_launches(),
+            "collectives": collectives.read(), "sweeps": sweeps, "expected_sweeps": sorted(expected),
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(), "before": before,
+            "after": {n: p.detach().cpu().clone() for n, p in unwrap(state.model).named_parameters()}}
+
+
+def mesh_infer(dev, dtype_name: str, shape=None, perturb=None) -> dict:
+    """The DTU-eval forward in ``dtype_name`` on this process's share of
+    ``shape`` (one process without), on phase 4's weights and inputs:
+    REQUESTS forwards, their ms and launches, the warp kernels' shapes in
+    one, the collectives of one, and the outputs the agreement reads (on
+    the CPU). ``perturb(model)``, if given, is a context the forwards run
+    in."""
+    import time
+
+    from transmvsnet_tpu_torch.config import MeshConfig, ModelConfig
+    from transmvsnet_tpu_torch.data.example import example_inputs
+    from transmvsnet_tpu_torch.models.feature_net import DCN
+    from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
+    from transmvsnet_tpu_torch.parallel import collectives
+    from transmvsnet_tpu_torch.parallel.mesh import make_mesh
+    from transmvsnet_tpu_torch.parallel.sharding import sharding_rules
+
+    mesh = make_mesh(MeshConfig(*shape) if shape else None)
+    gen = torch.Generator().manual_seed(0)
+    model = TransMVSNet(ModelConfig(ndepths=NDEPTHS, compute_dtype=dtype_name), device=dev, generator=gen).eval()
+    with torch.no_grad():  # as main_path: offsets of about a pixel
+        for m in model.modules():
+            if isinstance(m, DCN):
+                w, b = m.conv_offset_mask.weight, m.conv_offset_mask.bias
+                w.copy_(torch.randn(w.shape, generator=gen) * 0.05)
+                b.copy_(torch.randn(b.shape, generator=gen) * 1.5)
+    imgs, projs, dv = example_inputs(B=B, V=V, H=H, W=W, num_hyp=NUM_HYP)
+    inputs = (torch.from_numpy(imgs).to(dev), {k: torch.from_numpy(v).to(dev) for k, v in projs.items()},
+              torch.from_numpy(dv).to(dev))
+    sweeps = []
+    with torch.no_grad(), sharding_rules(mesh), perturb(model) if perturb else contextlib.nullcontext():
+        with recorded_sweeps(sweeps):
+            model(*inputs)
+        collectives.reset()
+        out = model(*inputs)
+        counts = collectives.read()
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        for _ in range(REQUESTS):
+            model(*inputs)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / REQUESTS
+        expected = expected_sweeps(("warp_correlate",), H, W)
+    keep = {s: {k: out[s][k].cpu() for k in ("prob_volume", "depth", "photo_confidence")}
+            for s in ("stage1", "stage2", "stage3")}
+    return {"coords": mesh.coords, "ms_per_depth_map": ms, "launches": read_launches(), "collectives": counts,
+            "sweeps": sweeps, "expected_sweeps": sorted(expected), "outputs": {**keep, "depth": keep["stage3"]["depth"]}}
+
+
+def mesh_child(argv: list) -> int:
+    """One process of phase 8: ``--mesh-child <rank> <processes> <host:port>
+    <out.pt>``. Joins a gloo group on the one card and runs the meshes of
+    MESH_TRAIN (and, in four processes, MESH_INFER's forwards)."""
+    from transmvsnet_tpu_torch.parallel import distributed
+
+    rank, processes, coordinator, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    distributed.initialize(coordinator, processes, rank, backend="gloo", device="cuda")
+    try:
+        dev = distributed.process_device("cuda")
+        runs = {}
+        for shape in MESH_TRAIN[processes]:
+            runs["train_f32_" + mesh_name(shape)] = mesh_train(dev, shape)
+            torch.cuda.empty_cache()
+        if processes == math.prod(MESH_INFER):
+            for dtype_name, sfx in (("bfloat16", ""), ("float32", "_f32")):
+                r = mesh_infer(dev, dtype_name, MESH_INFER)
+                if rank:  # the stage-3 depth stands for the rest
+                    r["outputs"] = {"depth": r["outputs"]["depth"]}
+                runs[f"inference{sfx}_{mesh_name(MESH_INFER)}"] = r
+                torch.cuda.empty_cache()
+        torch.save(runs, out)
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def the_mesh(dev, remat: dict) -> dict:
+    """Phase 8: each mesh run against one process on the card, the
+    processes' outputs in a scratch tree under build/ (git-ignored)."""
+    import pathlib
+    import shutil
+
+    from transmvsnet_tpu_torch.data.example import DEPTH_MAX, DEPTH_MIN
+
+    work = pathlib.Path(__file__).resolve().parent / "build" / "mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    runs = {}
+    for processes in MESH_TRAIN:
+        torch.cuda.empty_cache()
+        port = free_port()
+        outs = [str(work / f"mesh{processes}_{r}.pt") for r in range(processes)]
+        spawn([["--mesh-child", str(r), str(processes), f"localhost:{port}", outs[r]] for r in range(processes)],
+              f"the mesh in {processes} processes", 900)
+        for r, o in enumerate(outs):
+            for name, run in torch.load(o, weights_only=False).items():
+                runs.setdefault(name, []).append(run)
+    shutil.rmtree(work, ignore_errors=True)
+    single = mesh_train(dev)
+    repeat = mesh_train(dev)
+    result, failures = {}, []
+    for name, ranks in runs.items():
+        what = f"mesh {name}"
+        entry = {"processes": len(ranks), "coords": [r["coords"] for r in ranks]}
+        train = name.startswith("train")
+        per_pass = STEP_LAUNCHES["train_f32_remat"] if train else FORWARD_LAUNCHES[name.rsplit("_", 1)[0]]
+        for r in ranks:
+            try:
+                expect_launches(r["launches"], per_pass, MESH_STEPS if train else REQUESTS, f"{what} {r['coords']}")
+            except AssertionError as e:
+                failures.append(str(e))
+            if sorted(r["sweeps"]) != r["expected_sweeps"]:
+                failures.append(f"{what} {r['coords']}: warp kernels on {sorted(r['sweeps'])}, "
+                                f"the share is {r['expected_sweeps']}")
+        entry["launches"] = ranks[0]["launches"]
+        entry["launches_per_pass_per_process"] = {k: v / (MESH_STEPS if train else REQUESTS)
+                                                  for k, v in ranks[0]["launches"].items() if v}
+        entry["warp_shapes_by_process"] = {str(r["coords"]): sorted(r["sweeps"]) for r in ranks}
+        entry["collective_bytes_per_pass_per_process"] = {
+            k: v / (MESH_STEPS if train else 1) for k, v in ranks[0]["collectives"]["bytes"].items()}
+        entry["collective_bytes_by_site"] = {s: {k: c["bytes"] / (MESH_STEPS if train else 1) for k, c in kinds.items()}
+                                             for s, kinds in ranks[0]["collectives"]["sites"].items()}
+        if train:
+            entry["ms_per_step_by_process"] = [r["ms_per_step"] for r in ranks]
+            entry["one_process_ms_per_step"] = single["ms_per_step"]
+            entry["phase5_remat_ms_per_step_batch2_tf32"] = remat["ms_per_step"]["remat"]
+            entry["peak_memory_bytes_by_process"] = [r["peak_memory_bytes"] for r in ranks]
+            entry["one_process_peak_memory_bytes"] = single["peak_memory_bytes"]
+            entry["ranks_bitwise_equal"] = all(torch.equal(ranks[0]["after"][n], r["after"][n])
+                                               for r in ranks[1:] for n in r["after"])
+            entry["losses"] = ranks[0]["losses"]
+            entry["one_process_losses"] = single["losses"]
+            entry["update_cosine_vs_one_process"] = update_cosines(ranks[0], single)
+            entry["update_cosine_witness_one_process_repeated"] = update_cosines(repeat, single)
+            entry["gate"] = MESH_UPDATE_COSINE_MIN
+            if not entry["ranks_bitwise_equal"]:
+                failures.append(f"{what}: parameters differ across the processes")
+            low = {g: c for g, c in entry["update_cosine_vs_one_process"].items() if not c >= MESH_UPDATE_COSINE_MIN}
+            if low:
+                failures.append(f"{what}: update cosine against one process below {MESH_UPDATE_COSINE_MIN}: {low}")
+        else:
+            dtype_name = "float32" if name.startswith("inference_f32") else "bfloat16"
+            one = mesh_infer(dev, dtype_name)
+            interval = 0.5 * (DEPTH_MAX - DEPTH_MIN) / NUM_HYP
+
+            def agreement(got, want):
+                out = form_agreement(got, want, interval, dtype_name)
+                spread = want["stage3"]["prob_volume"].amax(1) - want["stage3"]["prob_volume"].amin(1)
+                dconf = (got["stage3"]["photo_confidence"] - want["stage3"]["photo_confidence"]).abs()
+                out["stage3_confidence_within_tol"] = (dconf <= DENSE_PROB_TOL[dtype_name] * spread).float().mean().item()
+                return out
+
+            entry.update(agreement(ranks[0]["outputs"], one["outputs"]))
+            if dtype_name == "bfloat16":
+                nudged = mesh_infer(dev, dtype_name, perturb=lambda m: nudged_dcn_outputs(m, seed=2))
+                entry["witness_one_process_nudged"] = agreement(nudged["outputs"], one["outputs"])
+                del nudged
+            gate = MESH_AGREE_MIN[dtype_name]
+            entry["gate"] = {"agree_min": gate, "prob_tol": DENSE_PROB_TOL[dtype_name]}
+            entry["ms_per_depth_map_by_process"] = [r["ms_per_depth_map"] for r in ranks]
+            entry["one_process_ms_per_depth_map"] = one["ms_per_depth_map"]
+            depth0 = ranks[0]["outputs"]["depth"]
+            entry["ranks_stage3_depth_within_one_interval_of_rank0"] = [
+                ((r["outputs"]["depth"] - depth0).abs() <= interval).float().mean().item() for r in ranks[1:]]
+            entry["ranks_bitwise_equal"] = all(torch.equal(r["outputs"]["depth"], depth0) for r in ranks[1:])
+            gated = ["stage3_depth_within_one_interval"]
+            if dtype_name == "float32":
+                gated += ["stage3_prob_columns_within_tol", "stage3_confidence_within_tol"]
+            if not all(entry[k] >= gate for k in gated):
+                failures.append(f"{what}: its outputs disagree with one process's: "
+                                f"{ {k: entry[k] for k in gated} }")
+            if not min(entry["ranks_stage3_depth_within_one_interval_of_rank0"]) >= gate:
+                failures.append(f"{what}: the processes' depths differ: "
+                                f"{entry['ranks_stage3_depth_within_one_interval_of_rank0']}")
+            del one
+        print(f"mesh, {name}: " + json.dumps(entry), flush=True)
+        result[name] = entry
+    if failures:  # raised once every figure is printed
+        raise AssertionError("the mesh: " + "; ".join(failures))
+    return result
+
+
+def mesh_summary(mesh: dict) -> dict:
+    """Phase 8's figures in one line."""
+    out = {}
+    for name, e in mesh.items():
+        line = {"collective_bytes_per_pass_per_process": e["collective_bytes_per_pass_per_process"]}
+        if name.startswith("train"):
+            line.update({k: e[k] for k in ("ms_per_step_by_process", "one_process_ms_per_step",
+                                            "phase5_remat_ms_per_step_batch2_tf32")})
+            line["update_cosine_lowest_group"] = min(e["update_cosine_vs_one_process"].values())
+            line["witness_lowest_group"] = min(e["update_cosine_witness_one_process_repeated"].values())
+        else:
+            line.update({k: e[k] for k in ("ms_per_depth_map_by_process", "one_process_ms_per_depth_map",
+                                            "stage3_depth_within_one_interval", "stage3_prob_columns_within_tol",
+                                            "stage3_confidence_within_tol")})
+            if "witness_one_process_nudged" in e:
+                line["witness_stage3_depth_within_one_interval"] = \
+                    e["witness_one_process_nudged"]["stage3_depth_within_one_interval"]
+        out[name] = line
+    return out
+
+
+def mesh_share_checks(dev, gen) -> dict:
+    """K6 and K4 (float32) on the shares of the training meshes, K2 and K6
+    on the forward mesh's, and K7 and K8 (bf16, the fused view sum, taken
+    when only depth is split) on depth slabs of two at stages 2-3, against
+    their plain versions: each share is the last process's chunk of the 4
+    sources and its slab of the hypotheses (the tolerances of phase 3).
+    Rows by kernel name."""
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate import (
+        warp_correlate,
+        warp_correlate_plain,
+        warp_correlate_wsum,
+        warp_correlate_wsum_plain,
+    )
+    from transmvsnet_tpu_torch.ops.cuda.warp_correlate_bwd import (
+        warp_correlate_bwd,
+        warp_correlate_bwd_plain,
+        warp_correlate_wsum_bwd,
+        warp_correlate_wsum_bwd_plain,
+    )
+    from transmvsnet_tpu_torch.parallel.sharding import chunk_sizes
+    from transmvsnet_tpu_torch.tools.compare_dcn import sweep_inputs
+
+    def last(n, parts):
+        sizes = chunk_sizes(n, parts)
+        return slice(n - sizes[-1], n)
+
+    cases = [("train", 1, TRAIN_H, TRAIN_W, s[1], s[2], torch.float32, ("fwd", "bwd"))
+             for shapes in MESH_TRAIN.values() for s in shapes]
+    cases += [("inference", B, H, W, MESH_INFER[1], MESH_INFER[2], dt, ("fwd",)) for dt in (torch.bfloat16, torch.float32)]
+    cases += [(path, b, ph, pw, 1, 2, torch.bfloat16, ("wsum", "wsum_bwd"))
+              for path, (b, ph, pw) in (("train", (1, TRAIN_H, TRAIN_W)), ("inference", (B, H, W)))]
+    rows: dict = {}
+    for path, b, ph, pw, view, depth, dtype, kinds in cases:
+        for i, (stage, C, D) in enumerate(SWEEPS):
+            if "wsum" in kinds[0] and i == 0:
+                continue  # stage 1 computes the view weights: no fused sum
+            src, ref, src_proj, ref_proj, dv = sweep_inputs(gen, dev, b, ph, pw, i, stage, C, D, dtype)
+            vs, ds = last(V - 1, view), last(D, depth)
+            args = (src[:, vs].contiguous(), ref, src_proj[:, vs].contiguous(), ref_proj, dv[:, ds].contiguous())
+            S_l, D_l = args[0].shape[1], args[4].shape[1]
+            h, w = args[0].shape[-2:]
+            vw = torch.rand(b, S_l, h, w, generator=gen).to(dev)
+            for kind in kinds:
+                if kind == "fwd":
+                    name, got, want = "warp_correlate", warp_correlate(*args), warp_correlate_plain(*args)
+                elif kind == "bwd":
+                    g = torch.randn(b, S_l, D_l, h, w, generator=gen).to(dev)
+                    name, got, want = "warp_correlate_bwd", warp_correlate_bwd(*args, g), warp_correlate_bwd_plain(*args, g)
+                elif kind == "wsum":
+                    name = "warp_correlate_wsum"
+                    got, want = warp_correlate_wsum(*args, vw), warp_correlate_wsum_plain(*args, vw)
+                else:
+                    g = torch.randn(b, D_l, h, w, generator=gen).to(dev)
+                    name = "warp_correlate_wsum_bwd"
+                    got = warp_correlate_wsum_bwd(*args, vw, g, need_dvw=False)[:2]
+                    want = warp_correlate_wsum_bwd_plain(*args, vw, g, need_dvw=False)[:2]
+                name += suffix(dtype) if "wsum" not in kind else ""
+                res = check_all(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,),
+                                1e-3, 1e-3, f"{name} on the mesh share {path} {stage} (view {view}, depth {depth})")
+                rows.setdefault(name, []).append({"path": path, "mesh_view": view, "mesh_depth": depth,
+                                                  "shape": [b, S_l, C, D_l, h, w], **res})
+                del got, want
+            del src, ref, src_proj, ref_proj, dv, args, vw
+            torch.cuda.empty_cache()
+    for name, r in rows.items():
+        print(f"{name} on the mesh shares: worst max_abs_err {max(x['max_abs_err'] for x in r):.3g} over "
+              f"{len(r)} shapes", flush=True)
+    return rows
+
+
 def machine_report() -> dict:
     """What the card's machine has for images: the Python image packages,
     and the libnvjpeg the codec loaded (its resolved path)."""
@@ -2708,6 +3130,8 @@ def machine_report() -> dict:
 def main() -> int:
     if sys.argv[1:2] == ["--ddp-child"]:
         return ddp_child(sys.argv[2:])
+    if sys.argv[1:2] == ["--mesh-child"]:
+        return mesh_child(sys.argv[2:])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card",
               file=sys.stderr)
@@ -2754,18 +3178,26 @@ def main() -> int:
     pipeline, native_entry = evaluation_pipeline(dev, paths)
     torch.cuda.empty_cache()
     training = training_side(dev, paths)
+    torch.cuda.empty_cache()
+    shares = mesh_share_checks(dev, gen)
+    mesh = the_mesh(dev, remat)
     for k in kernels:
         # Counts over each path's timed run (REQUESTS forwards, TRAIN_STEPS
         # steps); "launches" is the kernel's main path's (0 for row 4's
         # bf16 K5, which no path runs).
         k["launches_by_path"] = {p: r["launches"][k["name"]] for p, r in paths.items()}
         k["launches"] = k["launches_by_path"][k["main_path"]]
+        # Phase 8's runs, per process (its process of coordinates 0).
+        k["launches_by_path"].update({"mesh_" + n: e["launches"][k["name"]] for n, e in mesh.items()})
+        k["mesh_shares"] = shares.get(k["name"], [])
     # The native fuser runs on none of those paths: its launches are phase
     # 6's fusion runs through the CLI.
     kernels.append(native_entry)
     print("evaluation pipeline (" + smi + "): " + json.dumps(pipeline))
     print("training side (" + smi + "): " + json.dumps(training_summary(training)))
     print("cost regularisation and remat (" + smi + "): " + json.dumps(switches_summary(paths, remat)))
+    print("the mesh (" + smi + "; processes sharing one card: no figure across cards): "
+          + json.dumps(mesh_summary(mesh)))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

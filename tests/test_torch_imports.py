@@ -53,8 +53,8 @@ def test_the_walk_covers_the_evaluation_pipeline():
 
 def test_the_walk_covers_the_training_side():
     walked = {p.relative_to(ROOT).as_posix() for p in _port_files()}
-    for rel in ("parallel/distributed.py", "parallel/sharding.py", "data/registry.py", "utils_vis.py",
-                "tools/train.py", "tools/profile.py"):
+    for rel in ("parallel/distributed.py", "parallel/sharding.py", "parallel/mesh.py", "parallel/collectives.py",
+                "data/registry.py", "utils_vis.py", "tools/train.py", "tools/profile.py"):
         assert f"transmvsnet_tpu_torch/{rel}" in walked, rel
 
 

@@ -17,7 +17,7 @@ sample carries a NaN pixel and the group is joined from torchrun's
 environment variables instead of arguments. Writes ``<outdir>/out_<process_id>.pt``: the
 shard's indices, the state before, after the first step and at the end,
 the step scalars, and the counts of BatchNorm calls and of their
-all-reduces. Imports no JAX.
+all-reduces (``parallel/collectives.py``'s "batchnorm" site). Imports no JAX.
 """
 
 import os
@@ -34,14 +34,12 @@ DATA = dict(nviews=3, ndepths=48, num_samples=4, height=32, width=64)
 def main():
     pid, coordinator, outdir, case = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
     torch.set_num_threads(1)
-    import torch.distributed.nn.functional as dist_fn
-
     from transmvsnet_tpu_torch.config import ModelConfig
     from transmvsnet_tpu_torch.data.loader import ShardedLoader
     from transmvsnet_tpu_torch.data.synthetic import SyntheticDataset
     from transmvsnet_tpu_torch.models.blocks import BatchNorm
     from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
-    from transmvsnet_tpu_torch.parallel import distributed
+    from transmvsnet_tpu_torch.parallel import collectives, distributed
     from transmvsnet_tpu_torch.parallel.sharding import replicate, unwrap
     from transmvsnet_tpu_torch.train.loop import to_device_batch
     from transmvsnet_tpu_torch.train.schedule import make_optimizer, warmup_multistep
@@ -76,13 +74,7 @@ def main():
                     counts[key] += 1
 
             m.register_forward_hook(hook)
-    reduce = dist_fn.all_reduce
-
-    def counted(*args, **kwargs):
-        counts["all_reduces"] += 1
-        return reduce(*args, **kwargs)
-
-    dist_fn.all_reduce = counted
+    collectives.reset()
     step = make_train_step()
     scalars, after_first = [], None
     for i, raw in enumerate(loader):
@@ -93,6 +85,7 @@ def main():
         scalars.append({k: v.item() for k, v in s.items() if not k.startswith("_")})
         if i == 0:
             after_first = {k: v.clone() for k, v in model.state_dict().items()}
+    counts["all_reduces"] = collectives.read()["sites"]["batchnorm"]["all_reduce"]["calls"]
     torch.save({
         "indices": loader._shard_indices().tolist(),
         "before": before,

@@ -52,3 +52,14 @@ class ModelConfig:
     @property
     def stage_scales(self) -> Sequence[int]:
         return tuple(2 ** (self.num_stages - 1 - i) for i in range(self.num_stages))
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Process-mesh axis sizes: data × view × depth (the JAX package's
+    ``MeshConfig``). ``data`` 0 means the processes left over by the
+    other two axes (``parallel/mesh.py::make_mesh``)."""
+
+    data: int = 1
+    view: int = 1
+    depth: int = 1

@@ -17,7 +17,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from transmvsnet_tpu_torch.parallel import distributed
+from transmvsnet_tpu_torch.parallel import sharding
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -80,12 +80,16 @@ class BatchNorm(nn.Module):
     package's ``blocks.BatchNorm``). Buffers carry torch's names, including
     ``num_batches_tracked``, so torch BatchNorm state dicts load as they are.
 
-    In a process group of more than one process, train mode averages the
-    batch mean and E[x^2] over the processes with one differentiable
-    all-reduce per call, and the running variance counts the global batch:
-    every process holds an equal local batch, so this is BatchNorm over the
-    global batch (the JAX package's batch arrays are global; the
-    reference's SyncBatchNorm, reference train.py:363). ``torch.nn.
+    In a process group of more than one process, train mode sums each
+    channel's sum, sum of squares and element count over the processes of
+    ``stats_axes`` (``parallel/sharding.py::reduction_group``: all of them
+    without a mesh) with one differentiable all-reduce per call, and the
+    running variance counts the elements of every process: BatchNorm over
+    the global batch (the JAX package's batch arrays are global; the
+    reference's SyncBatchNorm, reference train.py:363). A layer replicated
+    over a mesh's view and depth axes reduces over ``data`` (the default);
+    one whose input is split over them as well reduces over all three,
+    and the true counts weigh unequal chunks right. ``torch.nn.
     SyncBatchNorm`` is not used: it refuses CPU tensors. With one process
     the statistics are the local batch's.
 
@@ -103,24 +107,28 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
         self.recomputing = False
+        self.stats_axes: tuple[str, ...] = ("data",)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         shape = [1, -1] + [1] * (x.ndim - 2)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         if self.training:
             axes = [0] + list(range(2, x.ndim))
-            mean = xf.mean(axes)
-            mean_sq = (xf * xf).mean(axes)
             n = xf.numel() / xf.shape[1]
-            processes = distributed.world_size()
-            if processes > 1:
-                from torch.distributed.nn.functional import all_reduce
-
-                mean, mean_sq = all_reduce(torch.stack([mean, mean_sq])) / processes
-                n *= processes
+            group = sharding.reduction_group(self.stats_axes)
+            if group is None:
+                mean = xf.mean(axes)
+                mean_sq = (xf * xf).mean(axes)
+                unbias = n / max(n - 1.0, 1.0)
+            else:
+                sums = torch.cat([xf.sum(axes), (xf * xf).sum(axes), xf.new_full((1,), n)])
+                sums = sharding.sum_over(sums, group, "batchnorm")
+                n = sums[-1]
+                mean, mean_sq = sums[:-1].unflatten(0, (2, -1)) / n
+                unbias = n / (n - 1.0).clamp(min=1.0)
             var = mean_sq - mean * mean
             if not self.recomputing:
-                self._update_running(mean, var, n)
+                self._update_running(mean, var, unbias)
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps) * self.weight
@@ -128,10 +136,10 @@ class BatchNorm(nn.Module):
         return y.to(x.dtype)
 
     @torch.no_grad()
-    def _update_running(self, mean: torch.Tensor, var: torch.Tensor, n: float) -> None:
+    def _update_running(self, mean: torch.Tensor, var: torch.Tensor, unbias) -> None:
         m = self.momentum
         self.running_mean.mul_(1 - m).add_(m * mean)
-        self.running_var.mul_(1 - m).add_(m * var * (n / max(n - 1.0, 1.0)))
+        self.running_var.mul_(1 - m).add_(m * var * unbias)
         self.num_batches_tracked.add_(1)
 
 

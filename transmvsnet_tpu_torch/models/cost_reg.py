@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from transmvsnet_tpu_torch.models.blocks import Conv3d, ConvBnReLU
+from transmvsnet_tpu_torch.parallel.mesh import AXES
 
 
 class CostRegNet(nn.Module):
@@ -147,13 +148,19 @@ class CostRegNetDense(CostRegNet):
 
 class PixelwiseNet(nn.Module):
     """[B, 1, D, H, W] similarity -> [B, H, W] visibility weight: 1x1x1
-    convs, sigmoid, max over D."""
+    convs, sigmoid, max over D.
+
+    On a mesh each process holds its views' share of B and its slab of
+    D, so the BatchNorms reduce over every axis of the mesh and the
+    caller takes the maximum over the depth axis."""
 
     def __init__(self):
         super().__init__()
         self.conv0 = ConvBnReLU(1, 16, 1, 1, 0, ndim=3)
         self.conv1 = ConvBnReLU(16, 8, 1, 1, 0, ndim=3)
         self.conv2 = Conv3d(8, 1, 1, 1, 0, bias=True)
+        for layer in (self.conv0, self.conv1):
+            layer.bn.stats_axes = AXES
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = torch.sigmoid(self.conv2(self.conv1(self.conv0(x))))

@@ -5,6 +5,15 @@ feature tokens; linear attention (elu+1 feature map, KV = sum K (x) V) never
 forms the N x N matrix; a closed-form 2-D sinusoidal position encoding; and
 the coarse-to-fine pathway into stages 2 and 3. All source views run as
 one batch [B*S, L, C].
+
+On a mesh (``parallel/sharding.py``) the FMT runs sequence parallel, as
+the JAX package's does under GSPMD: the tokens are split over the
+``depth`` axis (the JAX package's "seq") for the reference and the
+sources, and the sources over ``view``. Every op is local to a token but
+linear attention's ``KV`` and ``Z`` sums over the keys' tokens, which are
+summed over the ``depth`` axis in one all-reduce of their float32
+partials per attention. The pathway's 3x3 convs need whole images, so
+the FMT's outputs are gathered once, at its end.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from transmvsnet_tpu_torch.models.blocks import Conv2d, LayerNorm, Linear
+from transmvsnet_tpu_torch.parallel import sharding
 from transmvsnet_tpu_torch.ops.sampling import resize_bilinear
 
 
@@ -38,13 +48,19 @@ def sine_position_encoding(h: int, w: int, d_model: int) -> np.ndarray:
 
 
 def linear_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, eps: float = 1e-6
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, eps: float = 1e-6, seq_axis: str | None = None
 ) -> torch.Tensor:
-    """q [N, L, H, D], k/v [N, S, H, D] -> [N, L, H, D]; sums in float32."""
+    """q [N, L, H, D], k/v [N, S, H, D] -> [N, L, H, D]; sums in float32.
+    With ``seq_axis`` the tokens are split over that mesh axis and the
+    sums over the keys' tokens are all-reduced over it."""
     q = (F.elu(q) + 1.0).float()
     k = (F.elu(k) + 1.0).float()
     kv = torch.einsum("nshd,nshm->nhmd", k, v.float())
-    z = 1.0 / (torch.einsum("nlhd,nhd->nlh", q, k.sum(1)) + eps)
+    k_sum = k.sum(1)
+    if seq_axis is not None and sharding.axis_size(seq_axis) > 1:
+        both = sharding.psum(torch.cat([kv.flatten(1), k_sum.flatten(1)], 1), (seq_axis,), "fmt.kv")
+        kv, k_sum = both[:, : kv[0].numel()].view_as(kv), both[:, kv[0].numel():].view_as(k_sum)
+    z = 1.0 / (torch.einsum("nlhd,nhd->nlh", q, k_sum) + eps)
     out = torch.einsum("nlhd,nhmd,nlh->nlhm", q, kv, z)
     return out.to(v.dtype)
 
@@ -58,13 +74,13 @@ class AttentionLayer(nn.Module):
         self.value_projection = Linear(d_model, d_model)
         self.out_projection = Linear(d_model, d_model)
 
-    def forward(self, queries, keys, values):
+    def forward(self, queries, keys, values, seq_axis=None):
         N, L, C = queries.shape
         S, H = keys.shape[1], self.n_heads
         q = self.query_projection(queries).reshape(N, L, H, C // H)
         k = self.key_projection(keys).reshape(N, S, H, C // H)
         v = self.value_projection(values).reshape(N, S, H, C // H)
-        return self.out_projection(linear_attention(q, k, v).reshape(N, L, C))
+        return self.out_projection(linear_attention(q, k, v, seq_axis=seq_axis).reshape(N, L, C))
 
 
 class EncoderLayer(nn.Module):
@@ -76,8 +92,8 @@ class EncoderLayer(nn.Module):
         self.norm1 = LayerNorm(d_model)
         self.norm2 = LayerNorm(d_model)
 
-    def forward(self, x: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
-        x = self.norm1(x + self.attention(x, source, source))
+    def forward(self, x: torch.Tensor, source: torch.Tensor, seq_axis: str | None = None) -> torch.Tensor:
+        x = self.norm1(x + self.attention(x, source, source, seq_axis))
         y = self.linear2(F.relu(self.linear1(x)))
         return self.norm2(x + y)
 
@@ -100,23 +116,31 @@ class FMT(nn.Module):
         assert C == self.d_model
         pe = torch.from_numpy(sine_position_encoding(H, W, C)).to(ref.device, ref.dtype)
         pe = pe.reshape(1, H * W, C)
-        r = ref.flatten(2).transpose(1, 2) + pe  # [B, L, C]
-        s = src.reshape(B * S, C, H * W).transpose(1, 2) + pe  # [B*S, L, C]
+        L = H * W
+        # This process's tokens (and source views) on a mesh.
+        r = sharding.split(ref.flatten(2).transpose(1, 2) + pe, 1, "depth")  # [B, L, C]
+        s = src.reshape(B * S, C, L).transpose(1, 2) + pe  # [B*S, L, C]
+        s = sharding.split(sharding.split(s.unflatten(0, (B, S)), 1, "view"), 2, "depth")
+        S_local, L_local = s.shape[1:3]
+        s = s.flatten(0, 1)
         ref_intermediates = []
         for i, name in enumerate(self.layer_names):
             layer = self.layers[i]
             if name == "self":
-                r = layer(r, r)
+                r = layer(r, r, "depth")
                 ref_intermediates.append(r)
-                s = layer(s, s)
+                s = layer(s, s, "depth")
             elif name == "cross":
                 inter = ref_intermediates[i // 2]
-                tiled = inter[:, None].expand(B, S, H * W, C).reshape(B * S, H * W, C)
-                s = layer(s, tiled)
+                tiled = inter[:, None].expand(B, S_local, L_local, C).reshape(B * S_local, L_local, C)
+                s = layer(s, tiled, "depth")
             else:
                 raise ValueError(f"unknown layer kind {name}")
+        r = sharding.gather(r, 1, "depth", L, "fmt.out")
+        s = sharding.gather(sharding.gather(s.unflatten(0, (B, S_local)), 2, "depth", L, "fmt.out"),
+                            1, "view", S, "fmt.out")
         r = r.transpose(1, 2).reshape(B, C, H, W)
-        s = s.transpose(1, 2).reshape(B, S, C, H, W)
+        s = s.transpose(2, 3).reshape(B, S, C, H, W)
         return r, s
 
 

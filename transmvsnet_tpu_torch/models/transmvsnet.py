@@ -13,6 +13,18 @@ with ``remat`` the four modules the JAX package rematerialises
 (FeatureNet, the FMT, PixelwiseNet, each cost regulariser) recompute their
 activations in the backward. ``forward`` keeps the JAX package's
 channel-last input contract.
+
+On a mesh (``parallel/sharding.py``, the JAX package's ``constrain``
+points) each process sweeps its chunk of the source views (``view``)
+against its contiguous slab of each stage's hypotheses (``depth``):
+PixelwiseNet runs on that share and its maximum over depth becomes a max
+all-reduce over ``depth``; the view-weighted numerator and the weight sum
+are all-reduced over ``view``; the slabs of the similarity are gathered
+over ``depth`` before the cost regulariser, which, with the softmax and
+the WTA, runs replicated on every process. FeatureNet and the pathway
+run replicated too, the FMT sequence parallel (``models/fmt.py``). The
+fused view sum sums over views inside the kernel, so it is taken only
+when the views are not split.
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ from transmvsnet_tpu_torch.ops.geometry import (
 )
 from transmvsnet_tpu_torch.ops.sampling import resize_bilinear, upsample_nearest_2x
 from transmvsnet_tpu_torch.ops.vjp import warp_correlate_with_vjp, warp_correlate_wsum_with_vjp
+from transmvsnet_tpu_torch.parallel import sharding
 
 
 def depth_wta(prob_volume: torch.Tensor, depth_values: torch.Tensor) -> torch.Tensor:
@@ -126,20 +139,23 @@ class TransMVSNet(nn.Module):
 
         features [B, V, C, h, w] (view 0 the reference); proj [B, V, 2, 4, 4];
         depth_values [B, D, h, w]; view_weights [B, S, h, w] or None (stage 1
-        computes them). Returns (outputs, view_weights).
+        computes them; on a mesh S is this process's sources). Returns
+        (outputs, view_weights).
         """
         B, V, C, h, w = features.shape
-        S = V - 1
         D = depth_values.shape[1]
         fused = fuse_projection(proj.float())
+        # This process's source views and hypothesis slab on a mesh.
         args = (
-            features[:, 1:].contiguous(),
+            sharding.split(features[:, 1:], 1, "view").contiguous(),
             features[:, 0].contiguous(),
-            fused[:, 1:],
+            sharding.split(fused[:, 1:], 1, "view"),
             fused[:, 0],
-            depth_values.float().contiguous(),
+            sharding.split(depth_values.float(), 1, "depth").contiguous(),
         )
-        if view_weights is not None and self.cfg.fused_view_sum and features.dtype == torch.bfloat16:
+        S, D_slab = args[0].shape[1], args[4].shape[1]
+        if (view_weights is not None and self.cfg.fused_view_sum and features.dtype == torch.bfloat16
+                and sharding.axis_size("view") == 1):
             # Stages 2-3 with bf16 features: the view-weighted sum inside
             # the warp kernel (K7/K8), as the JAX package's fused route
             # (transmvsnet_tpu/models/transmvsnet.py:156-189).
@@ -148,18 +164,23 @@ class TransMVSNet(nn.Module):
             similarity = weighted / (1e-5 + view_weights.sum(1, keepdim=True))
         else:
             warp = warp_correlate_plain if self.plain_ops else warp_correlate_with_vjp
-            sim = warp(*args)  # [B, S, D, h, w] float32
+            sim = warp(*args)  # [B, S, D_slab, h, w] float32
             if view_weights is None:
                 # Gradients flow through the weights used in this stage's
                 # sum; later stages get the detached copy (reference
                 # TransMVSNet.py:82-84,107).
-                w_used = self._call(self.DepthNet.pixel_wise_net, sim.reshape(B * S, 1, D, h, w))
-                w_used = w_used.reshape(B, S, h, w)
+                w_used = self._call(self.DepthNet.pixel_wise_net, sim.reshape(B * S, 1, D_slab, h, w))
+                w_used = sharding.pmax(w_used, "depth", "pixelwise.max").reshape(B, S, h, w)
                 view_weights = w_used.detach()
             else:
                 w_used = view_weights
             wb = w_used[:, :, None]
-            similarity = (sim * wb).sum(1) / (1e-5 + wb.sum(1))
+            num, den = (sim * wb).sum(1), wb.sum(1)
+            if sharding.axis_size("view") > 1:
+                sums = sharding.psum(torch.cat([num, den], 1), ("view",), "similarity.view_sum")
+                num, den = sums[:, :D_slab], sums[:, D_slab:]
+            similarity = num / (1e-5 + den)
+        similarity = sharding.gather(similarity, 1, "depth", D, "similarity.slabs")
         cost = self._call(cost_reg, similarity.to(self.dtype)[:, None])[:, 0]
         prob_volume = torch.softmax(cost.float(), dim=1)
         outputs = {

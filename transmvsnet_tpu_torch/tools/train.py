@@ -21,19 +21,31 @@ process or several.
     python -m transmvsnet_tpu_torch.tools.train --device cpu --distributed \\
         --coordinator localhost:29500 --num_processes 2 --process_id 0 ...  # and 1
 
+    # Four processes on a (data 1, view 2, depth 2) mesh: one model's step
+    # split over the source views and the depth hypotheses:
+    torchrun --nproc_per_node 4 -m transmvsnet_tpu_torch.tools.train \
+        --distributed --mesh_view 2 --mesh_depth 2 --dataset dtu ...
+
     # A run that needs no data on disk:
     python -m transmvsnet_tpu_torch.tools.train --dataset synthetic --epochs 1
 
-The flags of the JAX package's ``tools/train.py`` without its TPU and mesh
-ones, plus ``--device`` (CUDA unless ``--device cpu``). On CUDA the DCN and
+The flags of the JAX package's ``tools/train.py`` without its TPU ones,
+plus ``--device`` (CUDA unless ``--device cpu``). On CUDA the DCN and
 warp-correlation layers run their forward and backward kernels in the
 activation dtype, float32 by default as in the JAX package;
 ``--dtype bfloat16`` is the faster path. ``--distributed`` joins a process
 group (``parallel/distributed.py``: NCCL on CUDA, gloo on the CPU; the
 flags, or torchrun's environment where they are omitted); each process
-then trains a disjoint shard of the data at ``--batch_size`` per process,
-with gradients averaged by DDP and BatchNorm over the global batch, and
-rank 0 alone logs and writes checkpoints. As in the JAX trainer, the
+(without a mesh, each its own data group) then trains a disjoint shard
+of the data at ``--batch_size`` per data group, with gradients averaged
+by DDP and BatchNorm over the global batch, and
+rank 0 alone logs and writes checkpoints. ``--mesh_data/--mesh_view/
+--mesh_depth`` lay the processes out as the JAX trainer's device mesh
+(``parallel/mesh.py``; data 0 takes the processes the other two leave):
+each group of view x depth processes computes one model's step split
+over the source views and the depth hypotheses (``parallel/
+sharding.py``), on the same samples, and the data groups train disjoint
+shards, so the global batch is ``--batch_size`` x data. As in the JAX trainer, the
 model recomputes its activations in the backward (``ModelConfig.remat``)
 unless ``--no_remat``. Checkpoints are
 ``<logdir>/model_NNNNNN.ckpt`` in the reference's layout; ``--resume``
@@ -50,14 +62,15 @@ import os
 import numpy as np
 import torch
 
-from transmvsnet_tpu_torch.config import ModelConfig
+from transmvsnet_tpu_torch.config import MeshConfig, ModelConfig
 from transmvsnet_tpu_torch.data.loader import ShardedLoader
 from transmvsnet_tpu_torch.data.registry import TRAINING, get_dataset
 from transmvsnet_tpu_torch.data.synthetic import SyntheticDataset
 from transmvsnet_tpu_torch.models.blocks import resolve_device
 from transmvsnet_tpu_torch.models.transmvsnet import TransMVSNet
 from transmvsnet_tpu_torch.parallel import distributed
-from transmvsnet_tpu_torch.parallel.sharding import replicate
+from transmvsnet_tpu_torch.parallel.mesh import AXES, make_mesh
+from transmvsnet_tpu_torch.parallel.sharding import replicate, sharding_rules
 from transmvsnet_tpu_torch.tools.infer import load_checkpoint
 from transmvsnet_tpu_torch.train.checkpoint import restore_latest, save_checkpoint
 from transmvsnet_tpu_torch.train.loop import MetricsLogger, run_epoch
@@ -81,7 +94,7 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=1e-3)
     p.add_argument("--lrepochs", default="6,8,12:2")
     p.add_argument("--wd", type=float, default=1e-4)
-    p.add_argument("--batch_size", type=int, default=2, help="per process")
+    p.add_argument("--batch_size", type=int, default=2, help="per data group")
     p.add_argument("--nviews", type=int, default=5)
     p.add_argument("--numdepth", type=int, default=192)
     p.add_argument("--interval_scale", type=float, default=1.06)
@@ -103,6 +116,11 @@ def parse_args(argv=None):
     p.add_argument("--coordinator", default="", help="host:port of process 0")
     p.add_argument("--num_processes", type=int, default=0, help="0 = WORLD_SIZE")
     p.add_argument("--process_id", type=int, default=-1, help="-1 = RANK")
+    p.add_argument("--mesh_data", type=int, default=0,
+                   help="data-parallel groups; 0 = the processes --mesh_view x --mesh_depth leave")
+    p.add_argument("--mesh_view", type=int, default=1, help="processes that split each step's source views")
+    p.add_argument("--mesh_depth", type=int, default=1,
+                   help="processes that split each stage's depth hypotheses (and the FMT's tokens)")
     p.add_argument("--no_remat", action="store_true",
                    help="keep the activations for the backward instead of recomputing them "
                         "(remat is on by default, as in the JAX trainer)")
@@ -167,9 +185,12 @@ def train(args, device: torch.device) -> TrainState:
         load_checkpoint(model, args.loadckpt)
         print(f"loaded weights from {args.loadckpt}")
 
-    # Each process loads a disjoint shard (the DistributedSampler contract,
-    # reference train.py:377-384); steps per epoch are the shard's.
-    shard = dict(num_shards=distributed.world_size(), shard_id=distributed.rank())
+    mesh = make_mesh(MeshConfig(args.mesh_data, args.mesh_view, args.mesh_depth))
+    if mesh.size(*AXES) != distributed.world_size():
+        raise ValueError(f"mesh {mesh.shape} does not use all {distributed.world_size()} processes")
+    # Each data group loads a disjoint shard (the DistributedSampler
+    # contract, reference train.py:377-384); steps per epoch are the shard's.
+    shard = dict(num_shards=mesh.size("data"), shard_id=mesh.index("data"))
     train_ds = build_dataset(args, "train", device)
     val_ds = train_ds if args.dataset == "synthetic" else build_dataset(args, "val", device)
     train_loader = ShardedLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed, drop_last=True, **shard)
@@ -195,19 +216,20 @@ def train(args, device: torch.device) -> TrainState:
     bld = args.loss == "bld"
     train_step = make_train_step(dlossw, with_bld_metrics=bld)
     eval_step = make_eval_step(dlossw, with_bld_metrics=bld)
-    for epoch in range(start_epoch, args.epochs):
-        train_loader.set_epoch(epoch)
-        state, means = run_epoch(train_step, state, train_loader, device, train=True, logger=logger,
-                                 mode="train", log_freq=args.summary_freq, epoch=epoch)
-        print(f"epoch {epoch} train: {means}")
-        logger.log("train_epoch", means, epoch)
-        if (epoch + 1) % args.eval_freq == 0:
-            _, means = run_epoch(eval_step, state, val_loader, device, train=False, logger=logger,
-                                 mode="val", log_freq=args.summary_freq, epoch=epoch)
-            print(f"epoch {epoch} val: {means}")
-            logger.log("val_epoch", means, epoch)
-        if (epoch + 1) % args.save_freq == 0:
-            save_checkpoint(args.logdir, epoch, state)
+    with sharding_rules(mesh):
+        for epoch in range(start_epoch, args.epochs):
+            train_loader.set_epoch(epoch)
+            state, means = run_epoch(train_step, state, train_loader, device, train=True, logger=logger,
+                                     mode="train", log_freq=args.summary_freq, epoch=epoch)
+            print(f"epoch {epoch} train: {means}")
+            logger.log("train_epoch", means, epoch)
+            if (epoch + 1) % args.eval_freq == 0:
+                _, means = run_epoch(eval_step, state, val_loader, device, train=False, logger=logger,
+                                     mode="val", log_freq=args.summary_freq, epoch=epoch)
+                print(f"epoch {epoch} val: {means}")
+                logger.log("val_epoch", means, epoch)
+            if (epoch + 1) % args.save_freq == 0:
+                save_checkpoint(args.logdir, epoch, state)
     logger.close()
     return state
 

@@ -18,7 +18,12 @@ guard sees the global batch's loss. The returned scalars are averaged over
 the processes (the JAX package logs global-batch scalars); the "_" image
 tensors stay local. With equal local batches the loss needs no change: it
 is a mean over images, so DDP's mean of the processes' gradients is the
-global batch's gradient.
+global batch's gradient. On a mesh (``parallel/sharding.py``) the
+processes of one data group compute the same loss and scalars, so the
+mean over all processes is still the global batch's, and DDP's mean of
+their gradients sums each group's partial gradients and averages the
+groups (``parallel/sharding.py::replicate``): neither the loss nor the
+guard needs a change there either.
 """
 
 from __future__ import annotations
