@@ -75,7 +75,11 @@ Needs one CUDA card, the CUDA toolkit (nvcc) and this repository's
    alone from a CUDA graph and bounded per view; then
    a true-depth scan at 1152x864 fused on the card with dynamic (held
    against the CPU) and native (against the plain version), each scored by
-   tools/eval_dtu.main (overall < 0.5); (d) a 12-view scene at 1920x1080 in
+   tools/eval_dtu.main (overall < 0.5); then (b)'s four output trees as
+   four scans fused through tools/fuse.main (dynamic) at --num_workers 1
+   and 4 (spawned processes), in turns (1, 4, 4, 1): four different PLYs,
+   each scan's byte-identical across the runs, the "wrote" lines in
+   testlist order, ms per scan and peak device memory at each count; (d) a 12-view scene at 1920x1080 in
    a TnT tree through infer (--dataset tnt, 11 views, inverse depth) and
    fuse (dynamic with thres_view 5, and native). The CPU fuser that (c)
    holds the card against reads the reference image with PIL and resizes
@@ -1563,6 +1567,11 @@ POINT_TOL = 1e-4  # ... and points, times the scene's depth range
 SCORE_MAX = 0.5  # tests/test_cli_pipeline.py::test_dtu_fuse_then_evaluate's bound
 NATIVE_DISP, NATIVE_CONSISTENT = 0.25, 3  # tools/fuse.py's --disp_threshold, --num_consistent
 DECODE_REPEATS = 20
+# Phase 6's scans, (b)'s output trees, fused at 1 and at FUSE_WORKERS workers, in turns
+# (1, 4, 4, 1), FUSE_WORKERS_ROUNDS times: each four-worker run starts four processes.
+FUSE_WORKERS_TREES = ("float32_batch1", "bfloat16_batch1", "float32_batch1_full_float32",
+                      "float32_batch2_full_float32")
+FUSE_WORKERS, FUSE_WORKERS_ROUNDS = 4, 1
 
 
 def focal_for(width: int) -> float:
@@ -1945,6 +1954,59 @@ def timed_cli(fn, args: list) -> float:
     return time.perf_counter() - t0
 
 
+def fusion_workers(dev, work, smi: str) -> dict:
+    """(b)'s four output trees (float32 and bf16 in the CLI's arithmetic,
+    float32 at batch 1 and 2 in full float32), their scan linked as
+    scan1..scan4, fused through tools/fuse.main (dynamic) at --num_workers 1
+    and 4 in turns (1, 4, 4, 1): ms per scan, the four-worker runs' start
+    of four spawned processes included, and the peak device memory in use
+    by all processes above the level before the run. Gates: the four scans
+    write four different PLYs, each run writes each scan's PLY byte for
+    byte as the first one-worker run, and prints them in testlist order."""
+    import contextlib
+    import io
+    import os
+
+    from transmvsnet_tpu_torch.tools import fuse
+    from transmvsnet_tpu_torch.tools.time_fusion_workers import DeviceMemory
+
+    root = work / "workers"
+    root.mkdir()
+    trees = FUSE_WORKERS_TREES
+    scans = [f"scan{i}" for i in range(1, len(trees) + 1)]
+    for scan, tree in zip(scans, trees):
+        os.symlink(work / f"dtu_out_{tree}" / "scan1", root / scan, target_is_directory=True)
+    (work / "workers.txt").write_text("".join(f"{scan}\n" for scan in scans))
+    runs = {1: [], FUSE_WORKERS: []}
+    for turn, workers in enumerate((1, FUSE_WORKERS, FUSE_WORKERS, 1) * FUSE_WORKERS_ROUNDS):
+        plys = work / f"plys_workers_{turn}"
+        buf = io.StringIO()
+        with DeviceMemory(dev) as memory, contextlib.redirect_stdout(buf):
+            s = timed_cli(fuse.main, ["--testpath", str(root), "--testlist", str(work / "workers.txt"), "--outdir",
+                                      str(plys), "--test_dataset", "dtu", "--num_workers", str(workers)])
+        wrote = [line.split(" ", 1)[1] for line in buf.getvalue().splitlines() if line.startswith("wrote ")]
+        want = [str(plys / f"mvsnet{i:03d}_l3.ply") for i in range(1, len(scans) + 1)]
+        if wrote != want:
+            raise AssertionError(f"fusion at {workers} workers printed {wrote}, not the testlist's order {want}")
+        runs[workers].append({"s": s, "peak": memory.peak_bytes,
+                              "plys": [open(p, "rb").read() for p in wrote]})
+    first = runs[1][0]["plys"]
+    if len(set(first)) != len(first):
+        raise AssertionError(f"two of the trees {trees} fused to the same PLY: a swapped scan would not show")
+    for n, rs in runs.items():
+        for r in rs:
+            differ = [tree for tree, mine, want in zip(trees, r["plys"], first) if mine != want]
+            if differ:
+                raise AssertionError(f"fusion at {n} workers wrote other PLYs than at 1 for {differ}")
+    ms = {n: [1e3 * x["s"] / len(scans) for x in rs] for n, rs in runs.items()}
+    r = {"scans": dict(zip(scans, trees)), "ms_per_scan_by_workers": ms,
+         "median_ms_per_scan_by_workers": {n: float(np.median(v)) for n, v in ms.items()},
+         "peak_device_memory_bytes_by_workers": {n: max(x["peak"] for x in rs) for n, rs in runs.items()},
+         "ply_bytes": [len(b) for b in first], "plys_byte_identical": True}
+    print("evaluation pipeline, DTU fusion across scans (" + smi + "): " + json.dumps(r), flush=True)
+    return r
+
+
 def write_true_scan(dev, root) -> tuple:
     """The synthetic scene's true depth maps as a fusion scan (confidence 1,
     as tests/test_cli_pipeline.py:85-118 writes them), scaled to
@@ -2154,7 +2216,7 @@ def native_kernel_entry(checks: dict, launches: dict) -> dict:
     }
 
 
-def evaluation_pipeline(dev, paths: dict) -> tuple[dict, dict]:
+def evaluation_pipeline(dev, paths: dict, smi: str) -> tuple[dict, dict]:
     """Phase 6: read -> infer -> write -> fuse -> score through the port's
     CLIs on the card, in a scratch tree under build/ (git-ignored). Returns
     its summary and the native fuser's kernel entry."""
@@ -2169,6 +2231,7 @@ def evaluation_pipeline(dev, paths: dict) -> tuple[dict, dict]:
     codec = codec_checks(dev, work)
     dtu = dtu_infer(dev, work, ckpt)
     fusion = fusion_and_scoring(dev, work, dtu)
+    workers = fusion_workers(dev, work, smi)
     tnt = tnt_pipeline(dev, work, ckpt)
     native_runs = {"dtu": fusion["native"], "true_depth": fusion["true_depth_native"], "tnt": tnt["native"]}
     summary = {
@@ -2189,6 +2252,7 @@ def evaluation_pipeline(dev, paths: dict) -> tuple[dict, dict]:
                                "tnt": tnt["fusion_ms_per_scan"], "tnt_native": tnt["native"]["ms_per_scan"]},
         "fusion_points": {**{k: v["points"] for k, v in fusion.items()}, "tnt": tnt["points"],
                           "tnt_native": tnt["native"]["points"]},
+        "fusion_across_scans": workers,
         "native_fuse_launches_per_scan": {k: v["launches"] for k, v in native_runs.items()},
         "native_kernel_ms_per_reference_view": {k: float(np.mean([r["ms"] for r in v["vs_plain"]["views"]]))
                                                 for k, v in native_runs.items()},
@@ -3175,7 +3239,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     remat = remat_path(dev)
     torch.cuda.empty_cache()
-    pipeline, native_entry = evaluation_pipeline(dev, paths)
+    pipeline, native_entry = evaluation_pipeline(dev, paths, smi)
     torch.cuda.empty_cache()
     training = training_side(dev, paths)
     torch.cuda.empty_cache()

@@ -32,13 +32,17 @@ Non-finite source coordinates (zero depth, points behind a source camera)
 read 0, as ``cv2.remap`` reads them.
 
 On-disk contract per scan folder: depth_est/*.pfm, confidence/*.pfm,
-cams/*_cam.txt (MVSNet format), images/*.jpg (or .png), pair.txt. Scans
-are fused one after another on the device.
+cams/*_cam.txt (MVSNet format), images/*.jpg (or .png), pair.txt.
+``fuse_scans`` fuses up to ``num_workers`` scans at once, each in a
+spawned process of its own (the JAX fuser's process pool, reference
+dynamic_fusion.py:291-301).
 """
 
 from __future__ import annotations
 
+import multiprocessing
 import os
+from concurrent import futures
 from dataclasses import dataclass
 
 import numpy as np
@@ -314,19 +318,55 @@ def fuse_scans(
     params: FusionParams = FusionParams(),
     dataset: str = "dtu",
     device: str | torch.device = "cuda",
+    num_workers: int = 8,
 ) -> list[str]:
-    """Fuse scans one after another on ``device``. DTU naming:
-    mvsnet{scanid:03d}_l3.ply (the DTU evaluator's, reference
+    """Fuse scans on ``device``, up to ``num_workers`` at once; returns the
+    output paths in ``scans``' order. Each scan's arithmetic does not depend
+    on the worker count, so its PLY is byte-identical at every count.
+
+    Workers are spawned processes, each with its own interpreter and, on
+    CUDA, its own context: threads hold one interpreter lock through the
+    host's share of a scan (PFM reads, PLY writes, torch's dispatch), and
+    so gained little. A process costs seconds to start (its imports and
+    context), so one worker, or one scan, runs in this process. The
+    parent builds the CUDA libraries before it spawns, and the children
+    take its torch thread count. The first failing scan's exception is
+    raised; the scans not yet handed to a worker are cancelled.
+
+    DTU naming: mvsnet{scanid:03d}_l3.ply (the DTU evaluator's, reference
     DTU-MATLAB/BaseEvalMain_web.m:34); otherwise <scan>.ply."""
     from transmvsnet_tpu_torch.eval.dtu_eval import dtu_ply_name
 
+    device = resolve_device(device)
     os.makedirs(outdir, exist_ok=True)
-    outputs = []
+    jobs = []
     for scan in scans:
         if dataset == "dtu" and scan.startswith("scan"):
             out_ply = os.path.join(outdir, dtu_ply_name(int(scan[4:])))
         else:
             out_ply = os.path.join(outdir, f"{scan}.ply")
-        fuse_scan(os.path.join(testpath, scan), out_ply, params, device=device)
-        outputs.append(out_ply)
-    return outputs
+        jobs.append((os.path.join(testpath, scan), out_ply, params, device))
+    workers = min(num_workers, len(jobs))
+    if workers <= 1:
+        return [_fuse_job(job) for job in jobs]
+    if device.type == "cuda":
+        from transmvsnet_tpu_torch.ops.cuda import build
+
+        build.build_all()
+    with futures.ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn"),
+                                     initializer=torch.set_num_threads,
+                                     initargs=(torch.get_num_threads(),)) as pool:
+        pending = [pool.submit(_fuse_job, job) for job in jobs]
+        futures.wait(pending, return_when=futures.FIRST_EXCEPTION)
+        failed = [f for f in pending if f.done() and f.exception() is not None]
+        if failed:
+            for f in pending:
+                f.cancel()
+            raise failed[0].exception()
+        return [f.result() for f in pending]
+
+
+def _fuse_job(job: tuple[str, str, FusionParams, torch.device]) -> str:
+    scan_folder, out_ply, params, device = job
+    fuse_scan(scan_folder, out_ply, params, device=device)
+    return out_ply

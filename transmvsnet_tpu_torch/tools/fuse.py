@@ -4,8 +4,13 @@ dynamic_fusion.py CLI).
     python -m transmvsnet_tpu_torch.tools.fuse --testpath out/ --testlist list.txt \\
         --outdir plys/ --test_dataset dtu --photo_threshold 0.3 --thres_view 3
 
-The JAX CLI's flags and routing, less ``--num_workers`` (its process pool;
-here scans run one after another on the device). ``--filter_method native``
+The JAX CLI's flags and routing, plus ``--device``. ``--num_workers``
+(default 8) fuses that many scans at once with ``dynamic`` and ``normal``
+(``fusion/dynamic.py::fuse_scans``: spawned processes, as the JAX CLI's
+process pool has; one worker or one scan runs in this process); each PLY
+is byte-identical to a one-worker run's and the "wrote" lines follow the
+testlist. As in the JAX CLI, ``native`` takes the flag and ignores it.
+``--filter_method native``
 is the fusibile role (``fusion/native.py``: the C++ binary's consistency
 test as the CUDA kernel ``csrc/native_fuse.cu``), with ``--disp_threshold``
 and ``--num_consistent``. Runs on CUDA unless ``--device cpu``.
@@ -39,6 +44,8 @@ def parse_args(argv=None):
     p.add_argument("--disp_threshold", type=float, default=0.25)
     p.add_argument("--num_consistent", type=int, default=3)
     p.add_argument("--test_dataset", default="dtu", choices=["dtu", "tnt"])
+    p.add_argument("--num_workers", type=int, default=8,
+                   help="scans fused at once (dynamic, normal); native ignores it, as the JAX CLI does")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p.parse_args(argv)
 
@@ -71,7 +78,7 @@ def main(argv=None):
             geo_depth_thres=args.geo_depth_thres,
         )
         outputs = fuse_scans(args.testpath, scans, args.outdir, params, dataset=args.test_dataset,
-                             device=args.device)
+                             device=args.device, num_workers=args.num_workers)
     for o in outputs:
         print("wrote", o)
 

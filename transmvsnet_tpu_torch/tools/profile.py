@@ -27,6 +27,20 @@ the config's). ``--split_cost_reg`` adds, per stage, the device time of
 the cost regulariser's forward by part (``split_cost_reg``); it
 synchronises the card around every part, so the pass's wall time is not
 comparable with a run without it.
+
+The JAX CLI's options, with six defaults changed on purpose (the recorded
+profiles in PERF.md name command lines whose shapes follow them;
+``tests/test_torch_cli_flags.py`` holds the list):
+
+- ``--logdir ""`` (JAX ``./traces``): no trace unless asked for; a
+  training trace is ~68 MB.
+- ``--height 0``, ``--width 0`` (JAX 512, 640): 512x640 with ``--train``
+  (the DTU recipe) and 864x1152 without (the DTU eval setting, where the
+  JAX CLI profiles inference at the training shape).
+- ``--batch_size 0`` (JAX 1): 2 with ``--train`` (the DTU recipe), 1
+  without.
+- ``--warmup 2``, ``--iters 3`` (JAX 3, 5): the card needs no compile
+  warm-up, and three traced passes keep a training trace small.
 """
 
 from __future__ import annotations
