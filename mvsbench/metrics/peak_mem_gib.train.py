@@ -1,0 +1,6 @@
+"""peak_mem_gib.train: ``torch.cuda.max_memory_allocated`` over the
+window, in GiB."""
+
+
+def read(rec):
+    return rec.peak_bytes / 2**30 if rec.peak_bytes else None
